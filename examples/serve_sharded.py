@@ -6,7 +6,7 @@ Run with:
 
 Every generator here produces output token-identical to the single-device
 DecoderGenerator — sharding is an execution detail, never a numerics change.
-On real hardware the same code runs over a TPU pod slice's mesh.
+On a multi-GPU host the same code runs over a mesh of the cards.
 """
 
 import sys

@@ -38,7 +38,7 @@ prompt = "The Pallas kernel"
 print("greedy:      ", gen.generate(prompt, max_tokens=24))
 print("nucleus:     ", gen.generate(prompt, max_tokens=24, topk=50, top_p=0.9,
                                     temperature=0.8, seed=1))
-print("batched:     ", gen.generate_batch([prompt, "TPUs are"], max_tokens=16))
+print("batched:     ", gen.generate_batch([prompt, "GPUs are"], max_tokens=16))
 # best-of-n: ONE prefill, KV cache fanned out to n sample rows
 print("best-of-3:   ", gen.generate_samples(prompt, n=3, max_tokens=16,
                                             topk=40, seed=2))

@@ -7,7 +7,7 @@ frozen codebooks (ref encodec.py:152-185). Variants: 24khz (mono, causal,
 weight_norm, 32q) / 48khz (stereo, time_group_norm, 16q, loudness normalize)
 (ref encodec.py:216-221).
 
-TPU-native notes: all convs run NLC; the LSTM — the reference's one
+Layout notes: all convs run NLC; the LSTM — the reference's one
 torch.compile graph break (tests/audio/test_encodec.py:29-31) — is a
 ``lax.scan`` cell here, so the whole codec jits; reflect padding with
 extra right-pad to a stride multiple reproduces ref encodec.py:11-21.

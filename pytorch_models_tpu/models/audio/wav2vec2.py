@@ -7,7 +7,7 @@ LN (+proj if dims differ) → grouped-conv relative PE (kernel 128, groups 16,
 asymmetric same-pad for the even kernel, ref wav2vec2.py:69-73) added
 residually → Encoder (pre- or post-norm per config, ref wav2vec2.py:84).
 
-All 1D convs run NLC (TPU-native layout).
+All 1D convs run NLC (channels-last, XLA's native conv layout).
 """
 
 from __future__ import annotations

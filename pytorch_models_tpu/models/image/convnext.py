@@ -3,8 +3,8 @@
 Stem Conv(4,4)+LN → 4 stages of [downsample LN+Conv(2,2) for stages>0, then
 blocks: depthwise 7×7 conv → LN → Linear×4 → GELU → Linear, layer-scale γ]
 → GAP → LN (ref convnext.py:17-66). The reference fights NCHW with ``Permute``
-modules (convnext.py:8-14); here everything is NHWC end-to-end, the TPU-native
-layout. Per-stage blocks run as one ``lax.scan``.
+modules (convnext.py:8-14); here everything is NHWC end-to-end, XLA's
+native conv layout. Per-stage blocks run as one ``lax.scan``.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """ViT — Vision Transformer (AugReg / SigLIP / DeiT-3 / DINO / DINOv2 weights).
 
-TPU-native re-implementation with the capabilities of the reference
+JAX re-implementation with the capabilities of the reference
 ``pytorch_models/image/vit.py`` (class at vit.py:48, poolers at vit.py:20-43,
-loaders at vit.py:96-306): patch-embed conv (NHWC on TPU) → +learned PE →
+loaders at vit.py:96-306): patch-embed conv (NHWC) → +learned PE →
 optional cls token → pre-norm Encoder (lax.scan) → LayerNorm → pooler.
 
 Public API mirrors the reference: ``ViT.from_google("B/16_augreg",
@@ -91,7 +91,7 @@ def _pool(p: dict, cfg: ViTConfig, x: jnp.ndarray) -> jnp.ndarray:
 @partial(jax.jit, static_argnums=1)
 def vit_apply(params: dict, cfg: ViTConfig, imgs: jnp.ndarray) -> jnp.ndarray:
     """Forward (ref vit.py:77-85). ``imgs``: (N, 3, H, W) like the reference."""
-    x = jnp.transpose(imgs, (0, 2, 3, 1))  # NCHW -> NHWC (TPU-native conv layout)
+    x = jnp.transpose(imgs, (0, 2, 3, 1))  # NCHW -> NHWC (channels-last conv layout)
     x = conv2d(params["patch_embed"], x, stride=cfg.patch_size)
     x = x.reshape(x.shape[0], -1, cfg.d_model)  # (N, H*W, C), row-major like torch flatten
     x = x + params["pe"].astype(x.dtype)

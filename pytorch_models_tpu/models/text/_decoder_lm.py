@@ -16,7 +16,6 @@ import jax.numpy as jnp
 from jax import lax
 
 from ... import transformer as tfm
-from ...ops import attention as _attn
 from ...ops import layer_norm
 
 
@@ -30,7 +29,7 @@ class DecoderLMConfig:
     final_norm: bool
     act: str = "approximate_gelu"
     norm_eps: float = 1e-5
-    # "xla" forces the einsum attention path (no Pallas dispatch) — used by
+    # "xla" forces the einsum attention path (no kernel dispatch) — used by
     # code that runs the cached forward under vmap (batched speculative),
     # where per-row cache positions rule out the decode kernel.
     attn_impl: str = "auto"
@@ -86,10 +85,8 @@ def decoder_lm_forward_cached(params: dict, cfg: DecoderLMConfig, tokens: jnp.nd
 
     ``tokens``: (S,) int32. Returns ``(logits (S, V), new_caches)``.
     """
-    from ...ops.gather import embed_rows
-
     s = tokens.shape[0]
-    x = embed_rows(params["token_embs"], tokens)
+    x = jnp.take(params["token_embs"], tokens, axis=0)
     x = x + lax.dynamic_slice(params["pos_embs"], (pos, 0), (s, cfg.d_model)).astype(x.dtype)
     x, caches = tfm.decoder_apply(params["decoder"], cfg.layer, x, self_caches=caches, pos=pos)
     return _head(params, cfg, x), caches
@@ -108,12 +105,10 @@ def decoder_lm_forward_cached_batch(params, cfg: DecoderLMConfig, tokens, pos_id
     ``tokens``: (B, S) placed at cache slots ``[pos, pos+S)``; ``pos_ids``:
     (B, S) per-row position-embedding indices; ``pad_lens``: (B,) left-pad
     length per row, masked inside attention (and handled natively by the
-    Pallas decode kernel). Returns ``(logits, caches)``.
+    decode kernel). Returns ``(logits, caches)``.
     """
-    from ...ops.gather import embed_rows
-
-    x = embed_rows(params["token_embs"], tokens)
-    x = x + embed_rows(params["pos_embs"], pos_ids).astype(x.dtype)
+    x = jnp.take(params["token_embs"], tokens, axis=0)
+    x = x + jnp.take(params["pos_embs"], pos_ids, axis=0).astype(x.dtype)
     x, caches = tfm.decoder_apply(params["decoder"], cfg.layer, x, self_caches=caches, pos=pos,
                                   pad_lens=pad_lens)
     return _head(params, cfg, x), caches
@@ -121,161 +116,9 @@ def decoder_lm_forward_cached_batch(params, cfg: DecoderLMConfig, tokens, pos_id
 
 def decoder_lm_hidden_cached_batch(params, cfg: DecoderLMConfig, tokens, pos_ids, caches, pos, pad_lens):
     """Like :func:`decoder_lm_forward_cached_batch` but stops at the final
-    (normed) hidden state — the fused greedy head (ops/greedy_head.py) takes
-    it from there without materializing the (B, V) logits."""
-    from ...ops.gather import embed_rows
-
-    x = embed_rows(params["token_embs"], tokens)
-    x = x + embed_rows(params["pos_embs"], pos_ids).astype(x.dtype)
+    (normed) hidden state (prefill passes that need no logits)."""
+    x = jnp.take(params["token_embs"], tokens, axis=0)
+    x = x + jnp.take(params["pos_embs"], pos_ids, axis=0).astype(x.dtype)
     x, caches = tfm.decoder_apply(params["decoder"], cfg.layer, x, self_caches=caches, pos=pos,
                                   pad_lens=pad_lens)
-    return _final_hidden(params, cfg, x), caches
-
-
-def decoder_lm_fused_ok(params, cfg: DecoderLMConfig) -> bool:
-    """Static gate for the one-kernel fused decode step (ops/decode_step.py)."""
-    from ...ops.decode_step import fused_step_eligible
-    from ...transformer import padded_cache_len
-
-    if not _attn.use_fused_step() or not cfg.pre_norm:
-        return False
-    return fused_step_eligible(params["decoder"]["layers"], cfg.layer,
-                               padded_cache_len(cfg.max_seq_len))
-
-
-def decoder_lm_pack(params: dict, cfg: DecoderLMConfig):
-    """Pack the layer stack + tied greedy head for the fused step (once per
-    generate call; the concat/cast/pad is hoisted out of the decode loop).
-    Returns ``(packed, head, head_v)``."""
-    from ...ops.decode_step import pack_decode_weights, pack_greedy_head
-
-    dtype = params["token_embs"].dtype
-    packed = pack_decode_weights(params["decoder"]["layers"], dtype)
-    fnorm = params["norm"] if cfg.final_norm else {
-        "scale": jnp.ones((cfg.d_model,), jnp.float32)}
-    head, head_v = pack_greedy_head(params["token_embs"], fnorm, dtype,
-                                    a8=_attn.use_a8_decode(packed["wqkv"].dtype))
-    return packed, head, head_v
-
-
-def quantize_kv_caches(caches: dict) -> dict:
-    """Layer-stacked bf16/f32 ``{"k","v"}`` (L, B, Lmax, H*D) caches (as
-    written by prefill) -> per-key int8 caches + batch-major f32 scale
-    planes ``{"k","v","ks","vs"}`` for the fused step's int8 self-KV path
-    (ops/decode_step.py ``kv_scales=``; design + oracle in ops/int8_kv.py).
-    Unwritten slots are zeros and quantize harmlessly (q=0, scale 1/127)."""
-    from ...ops.int8_kv import _b8, quantize_rows
-
-    k_q, k_s = quantize_rows(caches["k"])
-    v_q, v_s = quantize_rows(caches["v"])
-    b = k_q.shape[1]
-    pad = _b8(b) - b  # the kernel's scale-plane row-padding rule
-
-    def plane(s):  # (L, B, Lmax, 1) -> (L, B8, Lmax)
-        p = s[..., 0]
-        return jnp.pad(p, ((0, 0), (0, pad), (0, 0)), constant_values=1.0) if pad else p
-
-    out = {"k": k_q, "v": v_q, "ks": plane(k_s), "vs": plane(v_s)}
-    out.update({key: v for key, v in caches.items() if key not in ("k", "v")})
-    return out  # extra keys (e.g. cross "len") pass through
-
-
-def _write_caches(caches: dict, k_new, v_new, pos):
-    """Write this step's (L, B, H*D) K/V at ``pos`` — quantizing per key
-    when the caches are int8 (the kernel scores the current position with
-    the same rule, so a key scores identically now and from the cache)."""
-    from ...ops.int8_kv import quantize_rows
-
-    start = (0, 0, pos, 0)
-    if "ks" not in caches:
-        return {
-            "k": lax.dynamic_update_slice(caches["k"], k_new[:, :, None, :].astype(caches["k"].dtype), start),
-            "v": lax.dynamic_update_slice(caches["v"], v_new[:, :, None, :].astype(caches["v"].dtype), start),
-        }
-    kq, ks = quantize_rows(k_new)  # (L, B, H*D) -> int8 + (L, B, 1)
-    vq, vs = quantize_rows(v_new)
-    return {
-        "k": lax.dynamic_update_slice(caches["k"], kq[:, :, None, :], start),
-        "v": lax.dynamic_update_slice(caches["v"], vq[:, :, None, :], start),
-        "ks": lax.dynamic_update_slice(caches["ks"], ks, (0, 0, pos)),
-        "vs": lax.dynamic_update_slice(caches["vs"], vs, (0, 0, pos)),
-    }
-
-
-def _kv_scales(caches: dict):
-    return ({"ks": caches["ks"], "vs": caches["vs"]} if "ks" in caches else None)
-
-
-def cross_operands(cross: dict, cdt):
-    """(ck, cv, kv_scales_x) for a fused cross-attention step: int8 caches
-    (quantize_kv_caches output) pass through in their native dtype with the
-    scale planes; full-precision caches cast to the compute dtype."""
-    if "ks" in cross:
-        return cross["k"], cross["v"], {"ks": cross["ks"], "vs": cross["vs"]}
-    return cross["k"].astype(cdt), cross["v"].astype(cdt), None
-
-
-def _embed_or_fold(params, tokens, pos_ids):
-    """Embeddings for a fused decode step: at small batch, return the
-    in-kernel embed-phase kwargs (the token/pos gathers move into the
-    megakernel's layer-0 entry — two fewer launches of per-step glue); else
-    gather outside as before. Returns ``(x_or_None, extra_kwargs)``."""
-    from ...ops.decode_step import pack_embed_tables
-    from ...ops.gather import embed_rows
-
-    if _attn.use_fused_embed(tokens.shape[0]):
-        emb = pack_embed_tables(params["token_embs"], params["pos_embs"],
-                                params["token_embs"].dtype)
-        return None, {"emb": emb, "tok_ids": tokens[:, 0], "pos_rows": pos_ids[:, 0]}
-    x = embed_rows(params["token_embs"], tokens[:, 0])
-    x = x + embed_rows(params["pos_embs"], pos_ids[:, 0]).astype(x.dtype)
-    return x, {}
-
-
-def decoder_lm_fused_tok_batch(params, packed, head, head_v, cfg: DecoderLMConfig,
-                               tokens, pos_ids, caches, pos, pad_lens):
-    """Fused decode step INCLUDING the greedy head phase: embeddings -> one
-    Pallas call (layer stack + final norm + streamed argmax) -> next token
-    ids. Returns ``(tok (B,), caches)``; the (B, V) logits never leave the
-    chip. At small batch the embedding lookups fold into the kernel too
-    (in-kernel embed phase, ops/decode_step.py)."""
-    from ...ops.decode_step import fused_decode_step
-
-    x, emb_kw = _embed_or_fold(params, tokens, pos_ids)
-    lc = cfg.layer
-    _, k_new, v_new, tok = fused_decode_step(
-        x, packed, caches["k"], caches["v"], pos, pad_lens,
-        n_heads=lc.n_heads, act=lc.act, eps=cfg.norm_eps, head=head, head_v=head_v,
-        a8=_attn.use_a8_decode(packed["wqkv"].dtype),
-        kv_scales=_kv_scales(caches), **emb_kw)
-    return tok, _write_caches(caches, k_new, v_new, pos)
-
-
-def decoder_lm_hidden_fused_batch(params, packed, cfg: DecoderLMConfig, tokens, pos_ids,
-                                  caches, pos, pad_lens):
-    """One fused decode step: embeddings -> ONE Pallas call over the whole
-    layer stack -> final norm. ``caches`` is the layer-stacked dict
-    ``{"k","v"}: (L, B, Lmax, H*D)`` holding positions ``[0, pos)``; the new
-    K/V for ``pos`` are written back with one dynamic_update_slice per cache
-    (all layers at once). Returns ``(hidden (B, 1, d), caches)``.
-    """
-    from ...ops.decode_step import fused_decode_step
-
-    x, emb_kw = _embed_or_fold(params, tokens, pos_ids)
-    lc = cfg.layer
-    x, k_new, v_new = fused_decode_step(x, packed, caches["k"], caches["v"], pos, pad_lens,
-                                        n_heads=lc.n_heads, act=lc.act, eps=cfg.norm_eps,
-                                        a8=_attn.use_a8_decode(packed["wqkv"].dtype),
-                                        kv_scales=_kv_scales(caches), **emb_kw)
-    return _final_hidden(params, cfg, x)[:, None, :], _write_caches(caches, k_new, v_new, pos)
-
-
-def decoder_lm_hidden_cached(params, cfg: DecoderLMConfig, tokens, caches, pos):
-    """Unbatched single-chunk variant of :func:`decoder_lm_hidden_cached_batch`."""
-    from ...ops.gather import embed_rows
-
-    s = tokens.shape[0]
-    x = embed_rows(params["token_embs"], tokens)
-    x = x + lax.dynamic_slice(params["pos_embs"], (pos, 0), (s, cfg.d_model)).astype(x.dtype)
-    x, caches = tfm.decoder_apply(params["decoder"], cfg.layer, x, self_caches=caches, pos=pos)
     return _final_hidden(params, cfg, x), caches

@@ -1,10 +1,9 @@
 """Fixed-shape batched beam search (new vs the reference, whose generator is
 greedy/top-k only, text/generator.py:26-31).
 
-TPU-shaped algorithm (the t5x/flaxformer pattern): the W alive beams ARE a
+Fixed-shape algorithm (the t5x/flaxformer pattern): the W alive beams ARE a
 batch — each step forwards all W rows through the same KV-cached decode path
-the batched greedy loop uses (the fused one-kernel decode step on TPU, minus
-its argmax head: beam needs full logits), expands to the top 2W candidates
+the batched greedy loop uses, expands to the top 2W candidates
 over (W, V) scores, routes EOS candidates into a W-slot finished pool, keeps
 the top W non-EOS as the new alive set, and reorders the KV cache by parent
 beam with one gather along the batch axis. Everything is static-shape inside
@@ -30,13 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-from ._decoder_lm import (
-    decoder_lm_forward_cached_batch,
-    decoder_lm_fused_ok,
-    decoder_lm_hidden_fused_batch,
-    decoder_lm_make_cache,
-    decoder_lm_pack,
-)
+from ._decoder_lm import decoder_lm_forward_cached_batch, decoder_lm_make_cache
 from .generator import PROMPT_BUCKET
 
 # finite (-inf would NaN through masked softmax rows); a Python float, NOT a
@@ -156,9 +149,9 @@ def beam_decode_loop(forward, gather_caches, caches, last_logits, buf,
     return seqs[0], scores[0], lens[0]
 
 
-@partial(jax.jit, static_argnums=(1, 5, 8, 9))
+@partial(jax.jit, static_argnums=(1, 5, 8))
 def _beam_search_batch(params, cfg, prompt_bufs, pad_lens_g, limit, beam_width,
-                       eos_id, alpha, fused, p_len):
+                       eos_id, alpha, p_len):
     """Decoder-LM beam search over G prompts at once. ``prompt_bufs``:
     (G, p_len) int32, each row LEFT-padded to the shared bucket length;
     ``pad_lens_g``: (G,) per-prompt pad counts. Prefill runs once per prompt
@@ -168,19 +161,15 @@ def _beam_search_batch(params, cfg, prompt_bufs, pad_lens_g, limit, beam_width,
     """
     w = beam_width
     g = prompt_bufs.shape[0]
-    from ...ops.layers import dot_precision
-
     pos_ids = jnp.clip(jnp.arange(p_len)[None, :] - pad_lens_g[:, None], 0, None)
     rows = prompt_bufs.astype(jnp.int32)
 
     dtype = params["token_embs"].dtype
-    caches = decoder_lm_make_cache(cfg, (g,), dtype=dtype, stacked=fused)
-    packed = decoder_lm_pack(params, cfg)[0] if fused else None
+    caches = decoder_lm_make_cache(cfg, (g,), dtype=dtype, stacked=False)
     logits, caches = decoder_lm_forward_cached_batch(
         params, cfg, rows, pos_ids, caches, 0, pad_lens_g)
 
-    axis = 1 if fused else 0  # stacked caches: (L, B, ...); list: (B, ...)
-    gather = lambda caches, idx: jax.tree.map(lambda c: jnp.take(c, idx, axis=axis), caches)
+    gather = lambda caches, idx: jax.tree.map(lambda c: jnp.take(c, idx, axis=0), caches)
     caches = gather(caches, jnp.repeat(jnp.arange(g), w))  # (.., G*W, ..)
     pad_lens = jnp.repeat(pad_lens_g, w)  # (G*W,)
 
@@ -190,12 +179,6 @@ def _beam_search_batch(params, cfg, prompt_bufs, pad_lens_g, limit, beam_width,
 
     def forward(tok, caches, pos):
         p_ids = (pos - 1 - pad_lens)[:, None]
-        if fused:
-            hidden, caches = decoder_lm_hidden_fused_batch(
-                params, packed, cfg, tok, p_ids, caches, pos - 1, pad_lens)
-            lg = jnp.matmul(hidden[:, 0], params["token_embs"].astype(hidden.dtype).T,
-                            precision=dot_precision(hidden))
-            return lg, caches
         lg, caches = decoder_lm_forward_cached_batch(
             params, cfg, tok, p_ids, caches, pos - 1, pad_lens)
         return lg[:, 0], caches
@@ -208,8 +191,8 @@ def beam_search_tokens_batch(model, token_lists, max_tokens: int = 100,
                              beam_width: int = 4, eos_id: int = -1,
                              length_penalty: float = 0.0,
                              return_all: bool = False):
-    """Beam-search continuations of G prompts in one fused batched decode
-    (all G*W beam rows step together). Returns a list of best sequences, or
+    """Beam-search continuations of G prompts in one batched decode (all
+    G*W beam rows step together). Returns a list of best sequences, or
     ``(sequences (G lists of W), scores (G lists of W))`` with ``return_all``
     (best first per prompt; scores are length-penalized log-probs)."""
     cfg = model.cfg
@@ -230,10 +213,9 @@ def beam_search_tokens_batch(model, token_lists, max_tokens: int = 100,
         prompt_bufs[i, pad_lens[i]:] = t
     limit = min(p_len + max_tokens, cfg.max_seq_len)
 
-    fused = decoder_lm_fused_ok(model.params, cfg)
     seqs, scores, lens = _beam_search_batch(
         model.params, cfg, jnp.asarray(prompt_bufs), jnp.asarray(pad_lens),
-        limit, beam_width, eos_id, float(length_penalty), fused, p_len)
+        limit, beam_width, eos_id, float(length_penalty), p_len)
     seqs, scores, lens = np.asarray(seqs), np.asarray(scores), np.asarray(lens)
     outs = [[seqs[i, j, pad_lens[i]: lens[i, j]].tolist() for j in range(beam_width)]
             for i in range(g)]

@@ -3,7 +3,7 @@
 API-compatible with the reference ``DecoderGenerator`` (reference
 text/generator.py:11-37): greedy (``topk=1``) or top-k sampling, EOS stop,
 same tokenizer protocol — plus top-p/nucleus sampling and a temperature
-knob (extensions; the reference has top-k only). The implementation is TPU-native instead of the
+knob (extensions; the reference has top-k only). Instead of the
 reference's per-token full re-forward + ``.item()`` host sync: one jitted
 prefill over the (bucket-padded) prompt fills the KV cache, then a single
 ``lax.while_loop`` generates tokens on-device with no host round-trips.
@@ -18,27 +18,16 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
+from ...ops import attention as _attn
+from ...ops.int8_kv import quantize_kv
 from ._decoder_lm import (
     decoder_lm_apply,
     decoder_lm_forward_cached,
     decoder_lm_forward_cached_batch,
-    decoder_lm_fused_ok,
-    decoder_lm_fused_tok_batch,
-    decoder_lm_hidden_cached,
-    decoder_lm_hidden_cached_batch,
-    decoder_lm_hidden_fused_batch,
     decoder_lm_make_cache,
-    decoder_lm_pack,
-    quantize_kv_caches,
 )
 
 PROMPT_BUCKET = 64  # prompts are right-padded to a multiple of this to bound recompiles
-
-
-def _use_int8_kv(batch: int) -> bool:
-    from ...ops import attention as _attn
-
-    return _attn.use_int8_kv(batch)
 
 
 def _check_sampling(topk: int, top_p, temperature) -> None:
@@ -111,6 +100,8 @@ def _generate(params, cfg, prompt_buf, n_prompt, limit, topk, eos_id, key,
     cache_dtype = params["token_embs"].dtype
     caches = decoder_lm_make_cache(cfg, dtype=cache_dtype, stacked=False)
     logits, caches = decoder_lm_forward_cached(params, cfg, prompt_buf, caches, 0)
+    if _attn.USE_INT8_KV:  # int8 self-KV (opt-in): quantize the prefilled cache once
+        caches = quantize_kv(caches)
     last_logits = lax.dynamic_index_in_dim(logits, n_prompt - 1, axis=0, keepdims=False)
 
     tokens_buf = jnp.zeros((cfg.max_seq_len,), jnp.int32)
@@ -125,19 +116,9 @@ def _generate(params, cfg, prompt_buf, n_prompt, limit, topk, eos_id, key,
         _, pos, _, _, done = s
         return jnp.logical_and(jnp.logical_not(done), pos < limit)
 
-    from ...ops import attention as _attn
-
     def body(s):
         buf, pos, caches, key, _ = s
         tok = lax.dynamic_slice(buf, (pos - 1,), (1,))
-        if greedy and _attn.use_greedy_head(1):
-            # fused head: argmax(hidden @ emb.T) with no (V,) logits round-trip
-            from ...ops.greedy_head import greedy_argmax_tied
-
-            hidden, caches = decoder_lm_hidden_cached(params, cfg, tok, caches, pos - 1)
-            nxt = greedy_argmax_tied(hidden, params["token_embs"].astype(hidden.dtype))[0]
-            buf = lax.dynamic_update_slice(buf, nxt[None], (pos,))
-            return (buf, pos + 1, caches, key, nxt == eos_id)
         logits, caches = decoder_lm_forward_cached(params, cfg, tok, caches, pos - 1)
         # greedy never consumes randomness: skip the per-step threefry split
         key, sub = (key, key) if greedy else jax.random.split(key)
@@ -150,7 +131,7 @@ def _generate(params, cfg, prompt_buf, n_prompt, limit, topk, eos_id, key,
 
 
 def _generate_batch_body(params, cfg, prompt_buf, pad_lens, limit, topk, eos_id, key,
-                         fused=False, top_p=None, temperature=1.0):
+                         top_p=None, temperature=1.0):
     """Batched greedy/top-k generation over LEFT-padded prompts.
 
     Beyond the reference (single-prompt only, text/generator.py:17-37):
@@ -169,27 +150,23 @@ def _generate_batch_body(params, cfg, prompt_buf, pad_lens, limit, topk, eos_id,
     pos_ids = jnp.clip(jnp.arange(p_len)[None, :] - pad_lens[:, None], 0, None)
 
     cache_dtype = params["token_embs"].dtype
-    # the fused one-kernel decode step wants layer-stacked caches; the per-op
-    # path decodes faster against a LIST of per-layer caches (no layer-slice
-    # read-modify-write inside the scan)
-    caches = decoder_lm_make_cache(cfg, (b,), dtype=cache_dtype, stacked=fused)
-    packed, head, head_v = decoder_lm_pack(params, cfg) if fused else (None, None, None)
+    # a LIST of per-layer caches: no layer-slice read-modify-write per step
+    caches = decoder_lm_make_cache(cfg, (b,), dtype=cache_dtype, stacked=False)
     logits, caches = decoder_lm_forward_cached_batch(params, cfg, prompt_buf, pos_ids, caches, 0, pad_lens)
     last = logits[:, -1]  # rows are right-aligned: slot P-1 is each row's last prompt token
-    if fused and _use_int8_kv(b):
-        # int8 self-KV serving (opt-in, ops/attention.py USE_INT8_KV): the
-        # prefilled cache quantizes once here; decode steps write quantized
-        caches = quantize_kv_caches(caches)
+    if _attn.USE_INT8_KV:
+        # int8 self-KV serving (opt-in): the prefilled cache quantizes once
+        # here; decode steps write quantized
+        caches = quantize_kv(caches)
 
     buf = jnp.zeros((b, l_max), jnp.int32)
     buf = lax.dynamic_update_slice(buf, prompt_buf.astype(jnp.int32), (0, 0))
-    return _decode_rows(params, cfg, fused, packed, head, head_v, buf, p_len,
-                        last, caches, pad_lens, limit, topk, eos_id, key,
-                        top_p, temperature)
+    return _decode_rows(params, cfg, buf, p_len, last, caches, pad_lens, limit, topk,
+                        eos_id, key, top_p, temperature)
 
 
-def _decode_rows(params, cfg, fused, packed, head, head_v, buf, p_len, last,
-                 caches, pad_lens, limit, topk, eos_id, key, top_p, temperature):
+def _decode_rows(params, cfg, buf, p_len, last, caches, pad_lens, limit, topk, eos_id,
+                 key, top_p, temperature):
     """Shared decode loop over B prefilled rows: sample each row's first token
     from ``last`` (B, V), then while_loop single-token steps until every row
     hits EOS or ``limit``. Returns ``(buf (B, max_seq_len), lengths (B,))``."""
@@ -209,44 +186,14 @@ def _decode_rows(params, cfg, fused, packed, head, head_v, buf, p_len, last,
         _, pos, _, _, done = s
         return jnp.logical_and(jnp.logical_not(jnp.all(done)), pos < limit)
 
-    from ...ops import attention as _attn
-
     def body(s):
         buf, pos, caches, key, done = s
         tok = lax.dynamic_slice(buf, (0, pos - 1), (b, 1))
         p_ids = (pos - 1 - pad_lens)[:, None]
-        if fused and greedy:
-            # greedy: layer stack + final norm + argmax in ONE kernel
-            nxt, caches = decoder_lm_fused_tok_batch(params, packed, head, head_v, cfg,
-                                                     tok, p_ids, caches, pos - 1, pad_lens)
-            nxt = jnp.where(done, jnp.int32(eos_id), nxt)
-            buf = lax.dynamic_update_slice(buf, nxt[:, None], (0, pos))
-            return buf, pos + 1, caches, key, jnp.logical_or(done, nxt == eos_id)
-        if fused:
-            hidden, caches = decoder_lm_hidden_fused_batch(params, packed, cfg, tok, p_ids,
-                                                           caches, pos - 1, pad_lens)
-        elif greedy and _attn.use_greedy_head(b):
-            hidden, caches = decoder_lm_hidden_cached_batch(params, cfg, tok, p_ids, caches,
-                                                            pos - 1, pad_lens)
-        else:
-            hidden = None
-        if hidden is not None and greedy and _attn.use_greedy_head(b):
-            # fused head: argmax(hidden @ emb.T), no (B, V) logits round-trip
-            from ...ops.greedy_head import greedy_argmax_tied
-
-            nxt = greedy_argmax_tied(hidden[:, 0], params["token_embs"].astype(hidden.dtype))
-        elif hidden is not None:
-            from ...ops.layers import dot_precision
-
-            logits = jnp.matmul(hidden, params["token_embs"].astype(hidden.dtype).T,
-                                precision=dot_precision(hidden))
-            key, sub = (key, key) if greedy else jax.random.split(key)
-            nxt = sample_rows(logits[:, 0], sub)
-        else:
-            logits, caches = decoder_lm_forward_cached_batch(params, cfg, tok, p_ids, caches,
-                                                             pos - 1, pad_lens)
-            key, sub = (key, key) if greedy else jax.random.split(key)
-            nxt = sample_rows(logits[:, 0], sub)
+        logits, caches = decoder_lm_forward_cached_batch(params, cfg, tok, p_ids, caches,
+                                                         pos - 1, pad_lens)
+        key, sub = (key, key) if greedy else jax.random.split(key)
+        nxt = sample_rows(logits[:, 0], sub)
         nxt = jnp.where(done, jnp.int32(eos_id), nxt)  # finished rows stay parked on EOS
         buf = lax.dynamic_update_slice(buf, nxt[:, None], (0, pos))
         return buf, pos + 1, caches, key, jnp.logical_or(done, nxt == eos_id)
@@ -263,11 +210,11 @@ def _decode_rows(params, cfg, fused, packed, head, head_v, buf, p_len, last,
     return buf, lengths
 
 
-_generate_batch = partial(jax.jit, static_argnums=(1, 5, 8, 9))(_generate_batch_body)
+_generate_batch = partial(jax.jit, static_argnums=(1, 5, 8))(_generate_batch_body)
 
 
 def _generate_samples_body(params, cfg, prompt_buf, pad_len, limit, topk, eos_id,
-                           key, n, fused=False, top_p=None, temperature=1.0):
+                           key, n, top_p=None, temperature=1.0):
     """N independent samples of ONE prompt with a SHARED prefill: the prompt
     is forwarded once (batch 1), its KV cache is broadcast to ``n`` rows, and
     the rows decode through the same loop as :func:`_generate_batch_body` —
@@ -283,29 +230,22 @@ def _generate_samples_body(params, cfg, prompt_buf, pad_len, limit, topk, eos_id
     pos_ids = jnp.clip(jnp.arange(p_len)[None, :] - pad1[:, None], 0, None)
 
     cache_dtype = params["token_embs"].dtype
-    caches = decoder_lm_make_cache(cfg, (1,), dtype=cache_dtype, stacked=fused)
-    packed, head, head_v = decoder_lm_pack(params, cfg) if fused else (None, None, None)
+    caches = decoder_lm_make_cache(cfg, (1,), dtype=cache_dtype, stacked=False)
     logits, caches = decoder_lm_forward_cached_batch(
         params, cfg, prompt_buf[None], pos_ids, caches, 0, pad1)
     last = jnp.broadcast_to(logits[:, -1], (n, logits.shape[-1]))
 
-    # fan the prefilled cache out to n rows (batch axis: 1 for stacked
-    # (L, B, Lp, H*D) leaves, 0 for the per-layer list)
-    if fused:
-        caches = {k: jnp.broadcast_to(v, (v.shape[0], n) + v.shape[2:])
-                  for k, v in caches.items()}
-    else:
-        caches = jax.tree.map(lambda c: jnp.broadcast_to(c, (n,) + c.shape[1:]), caches)
+    # fan the prefilled per-layer caches out to n rows
+    caches = jax.tree.map(lambda c: jnp.broadcast_to(c, (n,) + c.shape[1:]), caches)
 
     buf = jnp.zeros((n, l_max), jnp.int32)
     buf = lax.dynamic_update_slice(buf, jnp.broadcast_to(prompt_buf, (n, p_len)).astype(jnp.int32), (0, 0))
     pad_lens = jnp.broadcast_to(pad1, (n,))
-    return _decode_rows(params, cfg, fused, packed, head, head_v, buf, p_len,
-                        last, caches, pad_lens, limit, topk, eos_id, key,
-                        top_p, temperature)
+    return _decode_rows(params, cfg, buf, p_len, last, caches, pad_lens, limit, topk,
+                        eos_id, key, top_p, temperature)
 
 
-_generate_samples = partial(jax.jit, static_argnums=(1, 5, 8, 9, 10))(_generate_samples_body)
+_generate_samples = partial(jax.jit, static_argnums=(1, 5, 8, 9))(_generate_samples_body)
 
 
 @partial(jax.jit, static_argnums=(1,))
@@ -344,12 +284,6 @@ class DecoderGenerator:
         n = len(tokens)
         if max_tokens <= 0 or n >= cfg.max_seq_len:
             return list(tokens)
-        if _is_greedy(topk, top_p) and decoder_lm_fused_ok(self.model.params, cfg):
-            # the fused one-kernel decode step runs on batched (L, B, ...)
-            # cache layouts — serve a single prompt as batch-of-1 through it
-            # (greedy only: the batch path threads sampling keys differently)
-            return self.generate_tokens_batch([tokens], max_tokens=max_tokens,
-                                              topk=1, seed=seed)[0]
         pad = -(-n // PROMPT_BUCKET) * PROMPT_BUCKET
         pad = min(pad, cfg.max_seq_len)
         assert n <= pad, f"prompt too long for context {cfg.max_seq_len}"
@@ -386,7 +320,7 @@ class DecoderGenerator:
 
     def beam_search_batch(self, prompts: list[str], max_tokens: int = 100, beam_width: int = 4,
                           length_penalty: float = 0.0) -> list[str]:
-        """Beam search over multiple prompts in one fused batched decode."""
+        """Beam search over multiple prompts in one batched decode."""
         token_lists = [self.tokenizer.encode(p) for p in prompts]
         outs = self.beam_search_tokens_batch(token_lists, max_tokens, beam_width, length_penalty)
         return [self.tokenizer.decode(o) for o in outs]
@@ -437,8 +371,7 @@ class DecoderGenerator:
         limit = min(pad + max_tokens, cfg.max_seq_len)
         out, lengths = _generate_batch(
             self.model.params, cfg, jnp.asarray(buf), jnp.asarray(pad_lens), limit, topk, eos,
-            jax.random.PRNGKey(seed), decoder_lm_fused_ok(self.model.params, cfg),
-            top_p, temperature,
+            jax.random.PRNGKey(seed), top_p, temperature,
         )
         out, lengths = np.asarray(out), np.asarray(lengths)
         return [out[i, pad_lens[i]: lengths[i]].tolist() for i in range(b)]
@@ -479,8 +412,7 @@ class DecoderGenerator:
         limit = min(pad + max_tokens, cfg.max_seq_len)
         out, lengths = _generate_samples(
             self.model.params, cfg, jnp.asarray(buf), jnp.asarray(pad_len, jnp.int32),
-            limit, topk, eos, jax.random.PRNGKey(seed), n,
-            decoder_lm_fused_ok(self.model.params, cfg), top_p, temperature,
+            limit, topk, eos, jax.random.PRNGKey(seed), n, top_p, temperature,
         )
         out, lengths = np.asarray(out), np.asarray(lengths)
         return [out[i, pad_len: lengths[i]].tolist() for i in range(n)]

@@ -1,8 +1,8 @@
 """Greedy speculative decoding: a small draft model proposes k tokens, the
 target model verifies them in ONE chunked KV-cached forward.
 
-Serving rationale (TPU): single-stream decode is HBM-bandwidth-bound — every
-step reads all of the target's weights for one token (PERF.md). The verify
+Serving rationale: single-stream decode is memory-bandwidth-bound — every
+step reads all of the target's weights for one token. The verify
 chunk reads the weights ONCE for k+1 positions, so with an acceptance rate a
 the per-token weight traffic drops by ~(1 + a·k)/(1 + draft_cost). Greedy
 speculative decoding is EXACT: the emitted sequence is token-identical to
@@ -46,14 +46,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-from ._decoder_lm import (
-    decoder_lm_forward_cached,
-    decoder_lm_forward_cached_batch,
-    decoder_lm_fused_tok_batch,
-    decoder_lm_hidden_fused_batch,
-    decoder_lm_make_cache,
-    decoder_lm_pack,
-)
+from ._decoder_lm import decoder_lm_forward_cached, decoder_lm_make_cache
 from .generator import PROMPT_BUCKET, _check_sampling, _is_greedy, _nucleus_mask
 
 
@@ -118,35 +111,21 @@ def spec_greedy_decode_loop(draft_step, verify_chunk, t_state, d_state, buf,
 
 
 def _spec_greedy_loop(params, cfg, draft_params, draft_cfg, prompt_buf,
-                      n_prompt, limit, k, eos_id, fused_draft=False,
-                      count_iters=False):
+                      n_prompt, limit, k, eos_id, count_iters=False):
     """Prefill both models + while_loop of (k draft steps, 1 verify chunk).
 
     ``prompt_buf``: (P,) right-padded prompt; ``limit``: prompt + max_tokens
     budget. Returns ``(tokens_buf (max_seq_len,), length)`` like _generate.
-    ``fused_draft`` routes the draft's single-token steps through the decode
-    megakernel (batch-of-1, in-kernel greedy head) — the same path the plain
-    generator uses on TPU; the verify chunk is a per-op S=k+1 forward.
     """
     l_max = cfg.max_seq_len
     dtype_t = params["token_embs"].dtype
     dtype_d = draft_params["token_embs"].dtype
 
     t_caches = decoder_lm_make_cache(cfg, dtype=dtype_t, stacked=False)
-    d_caches = decoder_lm_make_cache(draft_cfg, (1,) if fused_draft else (),
-                                     dtype=dtype_d, stacked=fused_draft)
-    if fused_draft:
-        d_packed, d_head, d_head_v = decoder_lm_pack(draft_params, draft_cfg)
-        zero_pad = jnp.zeros((1,), jnp.int32)
+    d_caches = decoder_lm_make_cache(draft_cfg, dtype=dtype_d, stacked=False)
 
     t_logits, t_caches = decoder_lm_forward_cached(params, cfg, prompt_buf, t_caches, 0)
-    if fused_draft:
-        pos_ids = jnp.arange(prompt_buf.shape[0])[None, :]
-        _, d_caches = decoder_lm_forward_cached_batch(
-            draft_params, draft_cfg, prompt_buf[None], pos_ids, d_caches, 0, zero_pad)
-    else:
-        _, d_caches = decoder_lm_forward_cached(draft_params, draft_cfg, prompt_buf,
-                                                d_caches, 0)
+    _, d_caches = decoder_lm_forward_cached(draft_params, draft_cfg, prompt_buf, d_caches, 0)
     last = lax.dynamic_index_in_dim(t_logits, n_prompt - 1, axis=0, keepdims=False)
 
     buf = jnp.zeros((l_max,), jnp.int32)
@@ -155,11 +134,6 @@ def _spec_greedy_loop(params, cfg, draft_params, draft_cfg, prompt_buf,
     buf = lax.dynamic_update_slice(buf, first[None], (n_prompt,))
 
     def draft_step(tok, d_caches, pos):
-        if fused_draft:
-            nxt, d_caches = decoder_lm_fused_tok_batch(
-                draft_params, d_packed, d_head, d_head_v, draft_cfg,
-                tok[None], pos + zero_pad[:, None], d_caches, pos, zero_pad)
-            return nxt[0], d_caches
         lg, d_caches = decoder_lm_forward_cached(
             draft_params, draft_cfg, tok, d_caches, pos)
         return jnp.argmax(lg[0], axis=-1).astype(jnp.int32), d_caches
@@ -173,11 +147,11 @@ def _spec_greedy_loop(params, cfg, draft_params, draft_cfg, prompt_buf,
                                    eos_id, l_max, with_iters=count_iters)
 
 
-_speculative_generate = partial(jax.jit, static_argnums=(1, 3, 7, 9))(_spec_greedy_loop)
+_speculative_generate = partial(jax.jit, static_argnums=(1, 3, 7))(_spec_greedy_loop)
 # measurement variant: also returns the loop's iteration count so tools can
-# report the MEASURED acceptance rate (tools/spec_bench.py, PERF.md #29)
+# report the MEASURED acceptance rate (tools/spec_bench.py)
 _speculative_generate_stats = partial(
-    jax.jit, static_argnums=(1, 3, 7, 9))(partial(_spec_greedy_loop, count_iters=True))
+    jax.jit, static_argnums=(1, 3, 7))(partial(_spec_greedy_loop, count_iters=True))
 
 
 def truncate_decoder_lm(params: dict, cfg, n_layers: int):
@@ -186,7 +160,7 @@ def truncate_decoder_lm(params: dict, cfg, n_layers: int):
     final norm. No training, no distillation — the prefix of a pretrained
     stack is a real (if crude) predictor of the full stack's argmax, so the
     acceptance rate it yields is a genuine operating point rather than the
-    a=1 / a~0 brackets random draft weights give (PERF.md #29).
+    a=1 / a~0 brackets random draft weights give.
 
     Returns ``(draft_params, draft_cfg)`` sharing buffers with the target
     (slices of stacked arrays are views under jit; no copy until device put).
@@ -211,12 +185,11 @@ def _speculative_generate_batch(params, cfg, draft_params, draft_cfg, prompt_buf
     rows — the batch axis multiplies the speculative weight-traffic win.
 
     ``prompt_bufs``: (B, P) RIGHT-padded rows; ``n_prompts``/``limits``: (B,).
-    Caller must pass configs with ``attn_impl="xla"`` and trace with the
-    gather kernel off: per-row cache positions make the Pallas decode paths
-    unbatchable under vmap.
+    Caller must pass configs with ``attn_impl="xla"``: per-row cache
+    positions rule out the decode kernel under vmap.
     """
     core = lambda pb, n, lim: _spec_greedy_loop(
-        params, cfg, draft_params, draft_cfg, pb, n, lim, k, eos_id, False)
+        params, cfg, draft_params, draft_cfg, pb, n, lim, k, eos_id)
     return jax.vmap(core)(prompt_bufs, n_prompts, limits)
 
 
@@ -327,7 +300,7 @@ def spec_sample_decode_loop(draft_probs, verify_probs, t_state, d_state, buf,
 
 def _spec_sample_loop(params, cfg, draft_params, draft_cfg, prompt_buf,
                       n_prompt, limit, k, eos_id, key, topk, top_p,
-                      temperature, fused_draft=False):
+                      temperature):
     """Speculative SAMPLING: the rejection-sampling analogue of
     :func:`_speculative_generate` (same fixed-shape skeleton; see module
     docstring for the accept/residual scheme). Keys: three independent
@@ -341,21 +314,10 @@ def _spec_sample_loop(params, cfg, draft_params, draft_cfg, prompt_buf,
     dkey, akey, rkey = jax.random.split(key, 3)
 
     t_caches = decoder_lm_make_cache(cfg, dtype=dtype_t, stacked=False)
-    d_caches = decoder_lm_make_cache(draft_cfg, (1,) if fused_draft else (),
-                                     dtype=dtype_d, stacked=fused_draft)
-    if fused_draft:
-        d_packed = decoder_lm_pack(draft_params, draft_cfg)[0]
-        zero_pad = jnp.zeros((1,), jnp.int32)
-    from ...ops.layers import dot_precision
+    d_caches = decoder_lm_make_cache(draft_cfg, dtype=dtype_d, stacked=False)
 
     t_logits, t_caches = decoder_lm_forward_cached(params, cfg, prompt_buf, t_caches, 0)
-    if fused_draft:
-        pos_ids = jnp.arange(prompt_buf.shape[0])[None, :]
-        _, d_caches = decoder_lm_forward_cached_batch(
-            draft_params, draft_cfg, prompt_buf[None], pos_ids, d_caches, 0, zero_pad)
-    else:
-        _, d_caches = decoder_lm_forward_cached(draft_params, draft_cfg, prompt_buf,
-                                                d_caches, 0)
+    _, d_caches = decoder_lm_forward_cached(draft_params, draft_cfg, prompt_buf, d_caches, 0)
     last = lax.dynamic_index_in_dim(t_logits, n_prompt - 1, axis=0, keepdims=False)
 
     buf = jnp.zeros((l_max,), jnp.int32)
@@ -365,17 +327,8 @@ def _spec_sample_loop(params, cfg, draft_params, draft_cfg, prompt_buf,
     buf = lax.dynamic_update_slice(buf, first[None], (n_prompt,))
 
     def draft_probs(tok, d_caches, pos):
-        if fused_draft:
-            hid, d_caches = decoder_lm_hidden_fused_batch(
-                draft_params, d_packed, draft_cfg, tok[None],
-                pos + zero_pad[:, None], d_caches, pos, zero_pad)
-            emb = draft_params["token_embs"].astype(hid.dtype)
-            lg = jnp.matmul(hid[:, 0], emb.T, precision=dot_precision(hid))[0]
-        else:
-            lg, d_caches = decoder_lm_forward_cached(
-                draft_params, draft_cfg, tok, d_caches, pos)
-            lg = lg[0]
-        return _filtered_probs(lg[None], topk, top_p, temperature)[0], d_caches
+        lg, d_caches = decoder_lm_forward_cached(draft_params, draft_cfg, tok, d_caches, pos)
+        return _filtered_probs(lg[:1], topk, top_p, temperature)[0], d_caches
 
     def verify_probs(chunk, t_caches, pos):
         lg_t, t_caches = decoder_lm_forward_cached(params, cfg, chunk, t_caches, pos)
@@ -387,7 +340,7 @@ def _spec_sample_loop(params, cfg, draft_params, draft_cfg, prompt_buf,
 
 
 _speculative_sample_generate = partial(
-    jax.jit, static_argnums=(1, 3, 7, 10, 11, 13))(_spec_sample_loop)
+    jax.jit, static_argnums=(1, 3, 7, 10, 11))(_spec_sample_loop)
 
 
 @partial(jax.jit, static_argnums=(1, 3, 7, 10, 11))
@@ -402,7 +355,7 @@ def _speculative_sample_generate_batch(params, cfg, draft_params, draft_cfg,
         jnp.arange(prompt_bufs.shape[0]))
     core = lambda pb, n, lim, kk: _spec_sample_loop(
         params, cfg, draft_params, draft_cfg, pb, n, lim, k, eos_id, kk,
-        topk, top_p, temperature, False)
+        topk, top_p, temperature)
     return jax.vmap(core)(prompt_bufs, n_prompts, limits, keys)
 
 
@@ -462,13 +415,10 @@ class SpeculativeDecoderGenerator:
         if eos is None:
             eos = -1
         limit = min(n + max_tokens, cfg.max_seq_len)
-        from ._decoder_lm import decoder_lm_fused_ok
-
-        fused_draft = decoder_lm_fused_ok(self.draft_model.params, self.draft_model.cfg)
         if _is_greedy(topk, top_p):
             buf, length, n_iters = _speculative_generate_stats(
                 self.model.params, cfg, self.draft_model.params, self.draft_model.cfg,
-                jnp.asarray(prompt_buf), n, limit, self.k, eos, fused_draft)
+                jnp.asarray(prompt_buf), n, limit, self.k, eos)
             # serving observability (same spirit as the CB engines'
             # ServingStats): measured acceptance of the last greedy call
             emitted = int(length) - (n + 1)
@@ -479,7 +429,7 @@ class SpeculativeDecoderGenerator:
             buf, length = _speculative_sample_generate(
                 self.model.params, cfg, self.draft_model.params, self.draft_model.cfg,
                 jnp.asarray(prompt_buf), n, limit, self.k, eos,
-                jax.random.PRNGKey(seed), topk, top_p, temperature, fused_draft)
+                jax.random.PRNGKey(seed), topk, top_p, temperature)
         out = np.asarray(buf)[:int(length)]
         # truncate at the first EOS among generated tokens (plain-loop parity)
         gen = out[n:]
@@ -523,26 +473,23 @@ class SpeculativeDecoderGenerator:
         limits = np.minimum(np.asarray(ns, np.int64) + max_tokens,
                             cfg.max_seq_len).astype(np.int32)
 
-        # the vmapped loop can't batch the Pallas decode/gather kernels (per-row
-        # cache positions): trace with the einsum attention path + XLA gather
+        # the vmapped loop can't batch the decode kernel (per-row cache
+        # positions): trace with the einsum attention path
         from dataclasses import replace
-
-        from ...ops import gather as _gather
 
         cfg_x = replace(cfg, attn_impl="xla")
         dcfg_x = replace(self.draft_model.cfg, attn_impl="xla")
-        with _gather.xla_gather_for_trace():
-            if _is_greedy(topk, top_p):
-                bufs, lengths = _speculative_generate_batch(
-                    self.model.params, cfg_x, self.draft_model.params, dcfg_x,
-                    jnp.asarray(prompt_bufs), jnp.asarray(ns, dtype=jnp.int32),
-                    jnp.asarray(limits), self.k, eos)
-            else:
-                bufs, lengths = _speculative_sample_generate_batch(
-                    self.model.params, cfg_x, self.draft_model.params, dcfg_x,
-                    jnp.asarray(prompt_bufs), jnp.asarray(ns, dtype=jnp.int32),
-                    jnp.asarray(limits), self.k, eos, jax.random.PRNGKey(seed),
-                    topk, top_p, temperature)
+        if _is_greedy(topk, top_p):
+            bufs, lengths = _speculative_generate_batch(
+                self.model.params, cfg_x, self.draft_model.params, dcfg_x,
+                jnp.asarray(prompt_bufs), jnp.asarray(ns, dtype=jnp.int32),
+                jnp.asarray(limits), self.k, eos)
+        else:
+            bufs, lengths = _speculative_sample_generate_batch(
+                self.model.params, cfg_x, self.draft_model.params, dcfg_x,
+                jnp.asarray(prompt_bufs), jnp.asarray(ns, dtype=jnp.int32),
+                jnp.asarray(limits), self.k, eos, jax.random.PRNGKey(seed),
+                topk, top_p, temperature)
         bufs, lengths = np.asarray(bufs), np.asarray(lengths)
         outs = []
         for i in range(b):

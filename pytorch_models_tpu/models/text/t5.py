@@ -27,7 +27,7 @@ from jax import lax
 from ... import transformer as tfm
 from ...ops import ACT_FNS, linear
 from ...ops import attention as _attn
-from ...ops.gather import embed_rows
+from ...ops.int8_kv import quantize_kv
 from ...utils import StateDict, stack_layers
 from pytorch_models_tpu.utils.module import InferenceModel
 
@@ -61,7 +61,7 @@ class T5Config:
     tp_axis: str | None = None
     # "xla" forces the einsum attention path — used by code that runs the
     # cached decode under vmap (batched speculative), where per-row cache
-    # positions rule out the Pallas kernels.
+    # positions rule out the decode kernel.
     attn_impl: str = "auto"
 
     @property
@@ -237,77 +237,6 @@ def t5_decode(params, cfg: T5Config, tokens, memory, ca_bias=None):
 # ---------------------------------------------------------------------------
 
 
-def _t5_fused_ok(dec: dict, cfg: "T5Config", max_tokens: int) -> bool:
-    """Trace-time gate for the one-kernel fused decode step (ops/decode_step.py)."""
-    from ...ops import attention as _attn
-    from ...ops.decode_step import fused_step_eligible
-
-    if not _attn.use_fused_step():
-        return False
-    return fused_step_eligible(dec["layers"], cfg.layer, tfm.padded_cache_len(max_tokens),
-                               cross=True, gated=True)
-
-
-def _t5_key_major_bias(bias_table: jnp.ndarray, group: int = 1) -> jnp.ndarray:
-    """(H, P, L) rel-pos decode bias -> key-major (P, L, 128) fp32 for the
-    fused kernel (lane-padded: Mosaic wants 128-lane minor dims).
-
-    ``group > 1`` tiles the H head columns ``group`` times (int8 self-KV:
-    the grouped kernel's score columns are (row, head) pairs, so the bias
-    table carries the g-fold tiling — a free XLA op here vs a lane relayout
-    in-kernel). Requires ``group * H <= 128``."""
-    km = jnp.transpose(bias_table, (1, 2, 0)).astype(jnp.float32)
-    if group > 1:
-        assert group * km.shape[-1] <= 128, (group, km.shape)
-        km = jnp.concatenate([km] * group, axis=-1)
-    return jnp.pad(km, ((0, 0), (0, 0), (0, 128 - km.shape[-1])))
-
-
-def _t5_embed_or_fold(token_embs, tok):
-    """Decoder embeddings for a fused T5 step: at small batch the token
-    gather folds into the kernel's embed phase (ops/decode_step.py — T5 has
-    no decoder position table); else gather outside. Returns
-    ``(h_or_None (B, 1, d), emb_kwargs)``."""
-    from ...ops.decode_step import pack_embed_tables
-
-    if _attn.use_fused_embed(tok.shape[0]):
-        emb = pack_embed_tables(token_embs, None, token_embs.dtype)
-        return None, {"emb": emb, "tok_ids": tok[:, 0]}
-    return embed_rows(token_embs, tok), {}
-
-
-def _fused_t5_step(dec, packed, head, head_v, cfg: "T5Config", h, caches, cross_caches,
-                   bias_km, pos, emb_kw=None, pad_lens=None):
-    """One fused decode step for the T5 decoder (RMSNorm + rel-pos bias +
-    cross-attention + GEGLU + final RMSNorm + streamed greedy argmax, one
-    Pallas call). ``h``: (B, 1, d) — or None with ``emb_kw`` from
-    :func:`_t5_embed_or_fold` (the embedding gather folds into the kernel's
-    embed phase); ``bias_km``: (P, L, 128) key-major decode-bias table;
-    ``caches`` the layer-stacked dict. Returns ``(next_token (B,), caches)``
-    — or, when ``head is None`` (headless: sampling callers need full
-    logits), the final-normed hidden ``((B, d), caches)``."""
-    from ...ops.decode_step import fused_cross_decode_step
-
-    lc = cfg.layer
-    emb_kw = emb_kw or {}
-    cdt = (emb_kw["emb"]["tok"] if h is None else h).dtype
-    sbias = lax.dynamic_slice(bias_km, (pos, 0, 0), (1,) + bias_km.shape[1:])[0]
-    from ._decoder_lm import _kv_scales, _write_caches, cross_operands
-
-    ck, cv, kvx = cross_operands(cross_caches, cdt)
-    out = fused_cross_decode_step(
-        None if h is None else h[:, 0, :], packed, caches["k"], caches["v"],
-        ck, cv, cross_caches["len"][0], pos, pad_lens, n_heads=lc.n_heads,
-        act="approximate_gelu", eps=1e-5, norm="rms", gated=True, sbias=sbias,
-        head=head, head_v=head_v, a8=_attn.use_a8_decode(packed["wqkv"].dtype),
-        kv_scales=_kv_scales(caches), kv_scales_x=kvx, **emb_kw)
-    x_out, k_new, v_new = out[:3]
-    caches = _write_caches(caches, k_new, v_new, pos)
-    if head is None:
-        return rms_norm(dec["norm"], x_out), caches
-    return out[3], caches
-
-
 def _t5_decode_layers(dec, cfg: T5Config, h, caches, cross_caches, bias, ca_bias, pos):
     """One decode step through all layers, unrolled with per-layer list caches
     (avoids the dynamic_index cache-slice copy; see transformer.decoder_apply)."""
@@ -342,11 +271,15 @@ def _t5_generate(params, cfg: T5Config, enc_tokens, n_enc, max_tokens: int, pad_
     # per-row valid memory lengths replace the explicit cross-attn pad bias:
     # the cache's "len" masks padded keys on both the kernel and einsum paths
     cross_caches = tfm.precompute_cross_caches(dec, lc, memory, valid_lens=n_enc)
+    if _attn.USE_INT8_KV:  # int8 modes (opt-in), as the batched generator
+        self_caches = quantize_kv(self_caches)
+    if _attn.USE_INT8_KV_CROSS:
+        cross_caches = quantize_kv(cross_caches)
 
     out_buf = jnp.zeros((max_tokens,), jnp.int32).at[0].set(pad_id)
 
     # full (H, P, L) bias table ONCE outside the loop: the per-step bucket
-    # math + (H, L) gather is pure serialized VPU/gather work on TPU
+    # math + (H, L) gather would otherwise run every step
     l_pad = tfm.padded_cache_len(max_tokens)
     bias_table = relative_position_bias(
         dec["attn_bias"], jnp.arange(max_tokens), jnp.arange(l_pad), False, cfg)
@@ -354,17 +287,12 @@ def _t5_generate(params, cfg: T5Config, enc_tokens, n_enc, max_tokens: int, pad_
     def step(carry):
         buf, pos, caches, done = carry
         tok = lax.dynamic_slice(buf, (pos,), (1,))
-        h = embed_rows(params["token_embs"], tok)
+        h = jnp.take(params["token_embs"], tok, axis=0)
         bias = lax.dynamic_slice(bias_table, (0, pos, 0), (bias_table.shape[0], 1, l_pad))
 
         h, caches = _t5_decode_layers(dec, cfg, h, caches, cross_caches, bias, None, pos)
         h = rms_norm(dec["norm"], h)
-        if _attn.use_greedy_head(1):
-            from ...ops.greedy_head import greedy_argmax
-
-            nxt = greedy_argmax(h, params["classifier"]["w"].astype(h.dtype))[0]
-        else:
-            nxt = jnp.argmax(linear(params["classifier"], h)[0], axis=-1).astype(jnp.int32)
+        nxt = jnp.argmax(linear(params["classifier"], h)[0], axis=-1).astype(jnp.int32)
         buf = lax.dynamic_update_slice(buf, nxt[None], (pos + 1,))
         return buf, pos + 1, caches, nxt == eos_id
 
@@ -389,65 +317,33 @@ def _t5_generate_batch_body(params, cfg: T5Config, enc_tokens, n_enc, max_tokens
 
     dec = params["decoder"]
     lc = cfg.layer
-    fused = _t5_fused_ok(dec, cfg, max_tokens)
     self_caches = tfm.make_kv_cache(cfg.n_layers, (b,), lc.n_heads, max_tokens, lc.head_dim,
-                                    dtype=params["token_embs"].dtype, stacked=fused)
-    # int8 self-KV (opt-in): the cache starts empty (T5 decodes from the pad
-    # token), so quantizing the zeros IS the initial int8 state; the decode
-    # bias table below is group-tiled for the grouped kernel (g*H <= 128)
-    kv_g = b if b <= 8 else 8
-    int8_kv = fused and _attn.use_int8_kv(b) and kv_g * lc.n_heads <= 128
-    if int8_kv:
-        from ._decoder_lm import quantize_kv_caches
-
-        self_caches = quantize_kv_caches(self_caches)
+                                    dtype=params["token_embs"].dtype, stacked=False)
+    if _attn.USE_INT8_KV:
+        # int8 self-KV (opt-in): the cache starts empty (T5 decodes from the
+        # pad token), so quantizing the zeros IS the initial int8 state
+        self_caches = quantize_kv(self_caches)
     cross_caches = tfm.precompute_cross_caches(dec, lc, memory, valid_lens=n_enc)
-    if fused and _attn.use_int8_kv_cross(b):
+    if _attn.USE_INT8_KV_CROSS:
         # int8 cross-KV (opt-in): T5's decoder has no cross prefill, so the
         # quantized caches are the only copy the decode loop ever reads
         # (the rel-pos bias applies to self-attention only — cross is legal)
-        from ._decoder_lm import quantize_kv_caches
-
-        cross_caches = quantize_kv_caches(cross_caches)
+        cross_caches = quantize_kv(cross_caches)
 
     out_buf = jnp.zeros((b, max_tokens), jnp.int32).at[:, 0].set(pad_id)
 
     l_pad = tfm.padded_cache_len(max_tokens)
     bias_table = relative_position_bias(
         dec["attn_bias"], jnp.arange(max_tokens), jnp.arange(l_pad), False, cfg)
-    if fused:
-        from ...ops.decode_step import pack_decode_weights, pack_greedy_head
-
-        dtype = params["token_embs"].dtype
-        packed = pack_decode_weights(dec["layers"], dtype, gated=True, cross=True, norm="rms")
-        head, head_v = pack_greedy_head(params["classifier"]["w"], dec["norm"], dtype,
-                                        tied=False,
-                                        a8=_attn.use_a8_decode(packed["wqkv"].dtype))
-        bias_km = _t5_key_major_bias(bias_table, group=kv_g if int8_kv else 1)
 
     def step(carry):
         buf, pos, caches, done = carry
         tok = lax.dynamic_slice(buf, (0, pos), (b, 1))
-
-        if fused:
-            # layer stack + cross-attn + final RMSNorm + argmax in ONE kernel
-            # (small batch folds the embedding gather in too)
-            h, emb_kw = _t5_embed_or_fold(params["token_embs"], tok)
-            nxt, caches = _fused_t5_step(dec, packed, head, head_v, cfg, h, caches,
-                                         cross_caches, bias_km, pos, emb_kw=emb_kw)
-            nxt = jnp.where(done, jnp.int32(eos_id), nxt)
-            buf = lax.dynamic_update_slice(buf, nxt[:, None], (0, pos + 1))
-            return buf, pos + 1, caches, jnp.logical_or(done, nxt == eos_id)
-        h = embed_rows(params["token_embs"], tok)
+        h = jnp.take(params["token_embs"], tok, axis=0)
         bias = lax.dynamic_slice(bias_table, (0, pos, 0), (bias_table.shape[0], 1, l_pad))
         h, caches = _t5_decode_layers(dec, cfg, h, caches, cross_caches, bias, None, pos)
         h = rms_norm(dec["norm"], h)
-        if _attn.use_greedy_head(b):
-            from ...ops.greedy_head import greedy_argmax
-
-            nxt = greedy_argmax(h[:, 0], params["classifier"]["w"].astype(h.dtype))
-        else:
-            nxt = jnp.argmax(linear(params["classifier"], h)[:, 0], axis=-1).astype(jnp.int32)
+        nxt = jnp.argmax(linear(params["classifier"], h)[:, 0], axis=-1).astype(jnp.int32)
         nxt = jnp.where(done, jnp.int32(eos_id), nxt)
         buf = lax.dynamic_update_slice(buf, nxt[:, None], (0, pos + 1))
         return buf, pos + 1, caches, jnp.logical_or(done, nxt == eos_id)
@@ -472,8 +368,7 @@ def _t5_beam_body(params, cfg: T5Config, enc_tokens, n_enc, max_tokens: int,
                   pad_id, eos_id, beam_width: int, alpha):
     """Beam-search seq2seq generation for ONE prompt (``enc_tokens`` (P,)).
 
-    The W beams ride the batched decode path (the fused one-kernel step on
-    TPU, headless: beam needs full logits) via the model-agnostic loop in
+    The W beams ride the batched decode path via the model-agnostic loop in
     models/text/beam.py; encoder memory is projected into cross K/V once and
     broadcast across beams. Returns ``(seqs (W, max_tokens), scores (W,),
     lengths (W,))`` best-first; row layout matches the greedy buffers (pad
@@ -490,9 +385,8 @@ def _t5_beam_body(params, cfg: T5Config, enc_tokens, n_enc, max_tokens: int,
 
     dec = params["decoder"]
     lc = cfg.layer
-    fused = _t5_fused_ok(dec, cfg, max_tokens)
     self_caches = tfm.make_kv_cache(cfg.n_layers, (w,), lc.n_heads, max_tokens, lc.head_dim,
-                                    dtype=params["token_embs"].dtype, stacked=fused)
+                                    dtype=params["token_embs"].dtype, stacked=False)
     cross_caches = jax.tree.map(
         lambda c: jnp.broadcast_to(c, (c.shape[0], w, *c.shape[2:])),
         tfm.precompute_cross_caches(dec, lc, memory[None], valid_lens=n_enc.reshape(1)))
@@ -500,32 +394,10 @@ def _t5_beam_body(params, cfg: T5Config, enc_tokens, n_enc, max_tokens: int,
     l_pad = tfm.padded_cache_len(max_tokens)
     bias_table = relative_position_bias(
         dec["attn_bias"], jnp.arange(max_tokens), jnp.arange(l_pad), False, cfg)
-    if fused:
-        from ...ops.decode_step import fused_cross_decode_step, pack_decode_weights
-
-        dtype = params["token_embs"].dtype
-        packed = pack_decode_weights(dec["layers"], dtype, gated=True, cross=True, norm="rms")
-        bias_km = _t5_key_major_bias(bias_table)
 
     def forward(tok, caches, pos):
         # token at buffer index pos-1 -> cache/bias position pos-1
-        if fused:
-            cdt = params["token_embs"].dtype
-            h, emb_kw = _t5_embed_or_fold(params["token_embs"], tok)
-            sbias = lax.dynamic_slice(bias_km, (pos - 1, 0, 0), (1,) + bias_km.shape[1:])[0]
-            hx, k_new, v_new = fused_cross_decode_step(
-                None if h is None else h[:, 0, :], packed, caches["k"], caches["v"],
-                cross_caches["k"].astype(cdt), cross_caches["v"].astype(cdt),
-                cross_caches["len"][0], pos - 1, None, n_heads=lc.n_heads,
-                act="approximate_gelu", eps=1e-5, norm="rms", gated=True, sbias=sbias,
-                a8=_attn.use_a8_decode(packed["wqkv"].dtype), **emb_kw)
-            start = (0, 0, pos - 1, 0)
-            caches = {
-                "k": lax.dynamic_update_slice(caches["k"], k_new[:, :, None, :].astype(caches["k"].dtype), start),
-                "v": lax.dynamic_update_slice(caches["v"], v_new[:, :, None, :].astype(caches["v"].dtype), start),
-            }
-            return linear(params["classifier"], rms_norm(dec["norm"], hx)), caches
-        h = embed_rows(params["token_embs"], tok)
+        h = jnp.take(params["token_embs"], tok, axis=0)
         bias = lax.dynamic_slice(bias_table, (0, pos - 1, 0), (bias_table.shape[0], 1, l_pad))
         h, caches = _t5_decode_layers(dec, cfg, h, caches, cross_caches, bias, None, pos - 1)
         return linear(params["classifier"], rms_norm(dec["norm"], h))[:, 0], caches
@@ -534,8 +406,7 @@ def _t5_beam_body(params, cfg: T5Config, enc_tokens, n_enc, max_tokens: int,
     last_logits, self_caches = forward(pad_rows, self_caches, 1)
     buf = jnp.zeros((w, max_tokens), jnp.int32).at[:, 0].set(pad_id)
 
-    axis = 1 if fused else 0  # stacked caches: (L, W, ...); list: (W, ...)
-    gather = lambda caches, idx: jax.tree.map(lambda c: jnp.take(c, idx, axis=axis), caches)
+    gather = lambda caches, idx: jax.tree.map(lambda c: jnp.take(c, idx, axis=0), caches)
     return beam_decode_loop(forward, gather, self_caches, last_logits[0], buf,
                             1, max_tokens, w, eos_id, alpha)
 
@@ -568,7 +439,7 @@ def _t5_spec_chunk_forward(params, cfg: T5Config, cross_caches, bias_table,
     """Cached decoder forward of a (S,) chunk at positions ``[pos, pos+S)``
     (the verify path; S=1 is a draft step). Returns ``(logits (S, V), caches)``."""
     s = chunk.shape[0]
-    h = embed_rows(params["token_embs"], chunk)  # (S, d)
+    h = jnp.take(params["token_embs"], chunk, axis=0)  # (S, d)
     bias = lax.dynamic_slice(bias_table, (0, pos, 0), (bias_table.shape[0], s, l_pad))
     dec = params["decoder"]
     h, caches = _t5_decode_layers(dec, cfg, h, caches, cross_caches, bias, None, pos)
@@ -627,8 +498,8 @@ def _t5_speculative_generate_batch(params, cfg: T5Config, draft_params,
     broadcast, so each draft/verify step reads them ONCE for all rows.
 
     ``enc_bufs``: (B, P) RIGHT-padded rows; ``n_encs``: (B,). Caller must
-    pass configs with ``attn_impl="xla"`` and trace with the gather kernel
-    off — the Pallas paths don't batch under vmap (see
+    pass configs with ``attn_impl="xla"``: per-row cache positions under vmap
+    rule out the decode kernel (see
     models/text/speculative.py:_speculative_generate_batch)."""
     core = lambda enc, n: _t5_spec_body(params, cfg, draft_params, draft_cfg,
                                         enc, max_tokens, n, pad_id, eos_id, k)
@@ -797,13 +668,6 @@ class T5Generator:
         pad = -(-n // ENC_BUCKET) * ENC_BUCKET
         buf = np.zeros((pad,), np.int32)
         buf[:n] = token_ids
-        if _t5_fused_ok(self.model.params["decoder"], self.model.cfg, max_tokens):
-            # the fused one-kernel decode step runs on batched (L, B, ...)
-            # cache layouts — serve a single prompt as batch-of-1 through it
-            out, lengths = _t5_generate_batch(
-                self.model.params, self.model.cfg, jnp.asarray(buf)[None],
-                jnp.asarray([n], jnp.int32), max_tokens, pad_id, eos_id)
-            return np.asarray(out)[0][: int(np.asarray(lengths)[0])].tolist()
         out, length = _t5_generate(self.model.params, self.model.cfg, jnp.asarray(buf), n, max_tokens, pad_id, eos_id)
         return np.asarray(out)[: int(length)].tolist()
 
@@ -966,8 +830,6 @@ class SpeculativeT5Generator:
         for all rows). Token-identical per row to the unbatched path."""
         from dataclasses import replace
 
-        from ...ops import gather as _gather
-
         b = len(token_lists)
         ns = [len(t) for t in token_lists]
         assert b >= 1 and min(ns) >= 1
@@ -976,15 +838,14 @@ class SpeculativeT5Generator:
         for i, t in enumerate(token_lists):
             bufs[i, : ns[i]] = t
 
-        # the vmapped loop can't batch the Pallas kernels (per-row cache
-        # positions): trace with the einsum attention path + XLA gather
+        # the vmapped loop can't batch the decode kernel (per-row cache
+        # positions): trace with the einsum attention path
         cfg_x = replace(self.model.cfg, attn_impl="xla")
         dcfg_x = replace(self.draft_model.cfg, attn_impl="xla")
-        with _gather.xla_gather_for_trace():
-            outs, lengths = _t5_speculative_generate_batch(
-                self.model.params, cfg_x, self.draft_model.params, dcfg_x,
-                jnp.asarray(bufs), max_tokens, jnp.asarray(ns, jnp.int32),
-                pad_id, eos_id, self.k)
+        outs, lengths = _t5_speculative_generate_batch(
+            self.model.params, cfg_x, self.draft_model.params, dcfg_x,
+            jnp.asarray(bufs), max_tokens, jnp.asarray(ns, jnp.int32),
+            pad_id, eos_id, self.k)
         outs, lengths = np.asarray(outs), np.asarray(lengths)
         res = []
         for i in range(b):

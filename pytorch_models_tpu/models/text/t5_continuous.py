@@ -39,15 +39,11 @@ from jax import lax
 from ... import transformer as tfm
 from ...ops import attention as _attn
 from ...ops import linear
-from ...ops.gather import embed_rows
+from ...ops.int8_kv import quantize_kv
 from .t5 import (
     ENC_BUCKET,
     NEG_INF,
     T5Config,
-    _fused_t5_step,
-    _t5_embed_or_fold,
-    _t5_fused_ok,
-    _t5_key_major_bias,
     relative_position_bias,
     rms_norm,
     t5_block_apply,
@@ -72,7 +68,7 @@ def _t5cb_hidden(params, cfg: T5Config, cross, tok, caches, pos, pad_lens, bias)
     ``pos`` (stacked caches, per-layer ``cache_layer`` writes) + final RMSNorm.
     ``bias``: the global table's (H, 1, L_pad) q-row at ``pos``."""
     dec = params["decoder"]
-    h = embed_rows(params["token_embs"], tok)  # (B, 1, d)
+    h = jnp.take(params["token_embs"], tok, axis=0)  # (B, 1, d)
     n_layers = cross["k"].shape[0]
     for i in range(n_layers):
         lp = jax.tree.map(lambda a: a[i], dec["layers"])
@@ -113,8 +109,8 @@ def _t5cb_admit_i8_body(params, cfg, buf, cross, pad_lens, limits, done,
                         row, pos, memory_row, n_enc_row, max_new, pad_id):
     """int8-cross admission (opt-in USE_INT8_KV_CROSS): the request's freshly
     projected cross K/V quantizes ONCE here — write-once, the plain
-    generator's quantize-at-encode point (t5.py:405-411) — and the int8 rows
-    + scale planes paste over the slot. T5 has no self-KV prefill (the pad
+    generator's quantize-at-encode point — and the int8 rows + scales paste
+    over the slot. T5 has no self-KV prefill (the pad
     token's K/V comes from the first decode step), so int8 SELF needs no
     admission work at all: the pool just starts as quantized zeros."""
     from ...ops.int8_kv import quantize_rows
@@ -143,13 +139,12 @@ def _t5cb_admit_i8_body(params, cfg, buf, cross, pad_lens, limits, done,
 
 
 def _t5cb_steps_body(params, cfg, buf, pad_lens, limits, ends, caches, cross, pos,
-                     fused, done, n_steps, eos_id, bias_tab, packed=None, head=None,
-                     head_v=None, topk=1, top_p=None, temperature=1.0, keys=None,
-                     t0s=None, tps=None):
+                     done, n_steps, eos_id, bias_tab, topk=1, top_p=None,
+                     temperature=1.0, keys=None, t0s=None, tps=None):
     """Up to ``n_steps`` decode steps over the whole pool (early exit when
     every row is done); finished rows park writing EOS, ``ends`` latches
-    pos+1 the step a row finishes. ``bias_tab``: the pool-global decode bias
-    — key-major (P, L, 128) when ``fused`` else (H, P, L).
+    pos+1 the step a row finishes. ``bias_tab``: the pool-global (H, P, L)
+    decode bias.
 
     Sampling (``topk``/``top_p``/``temperature`` beyond greedy): each row
     draws with the SCHEDULE-INVARIANT key ``fold_in(keys[row], pos -
@@ -170,19 +165,11 @@ def _t5cb_steps_body(params, cfg, buf, pad_lens, limits, ends, caches, cross, po
     def body(s):
         buf, ends, caches, pos, done, i = s
         tok = lax.dynamic_slice(buf, (0, pos - 1), (b, 1))
+        bias = lax.dynamic_slice(bias_tab, (0, pos - 1, 0),
+                                 (bias_tab.shape[0], 1, bias_tab.shape[2]))
+        hn, caches = _t5cb_hidden(params, cfg, cross, tok, caches, pos - 1, pad_lens, bias)
+        logits = linear(params["classifier"], hn[:, 0])
         if not greedy:
-            if fused:
-                h, emb_kw = _t5_embed_or_fold(params["token_embs"], tok)
-                hn, caches = _fused_t5_step(dec, packed, None, None, cfg, h, caches,
-                                            cross, bias_tab, pos - 1, emb_kw=emb_kw,
-                                            pad_lens=pad_lens)
-            else:
-                bias = lax.dynamic_slice(bias_tab, (0, pos - 1, 0),
-                                         (bias_tab.shape[0], 1, bias_tab.shape[2]))
-                hn, caches = _t5cb_hidden(params, cfg, cross, tok, caches, pos - 1,
-                                          pad_lens, bias)
-                hn = hn[:, 0]
-            logits = linear(params["classifier"], hn)
             step_keys = jax.vmap(jax.random.fold_in)(keys, pos - t0s)
             if top_p is not None:
                 nxt = jax.vmap(lambda l, sk, tp, tm: _sample(l, sk, topk, tp, tm))(
@@ -190,23 +177,8 @@ def _t5cb_steps_body(params, cfg, buf, pad_lens, limits, ends, caches, cross, po
             else:
                 nxt = jax.vmap(lambda l, sk, tm: _sample(l, sk, topk, None, tm))(
                     logits, step_keys, temperature).astype(jnp.int32)
-        elif fused:
-            h, emb_kw = _t5_embed_or_fold(params["token_embs"], tok)
-            nxt, caches = _fused_t5_step(dec, packed, head, head_v, cfg, h, caches,
-                                         cross, bias_tab, pos - 1, emb_kw=emb_kw,
-                                         pad_lens=pad_lens)
         else:
-            bias = lax.dynamic_slice(bias_tab, (0, pos - 1, 0),
-                                     (bias_tab.shape[0], 1, bias_tab.shape[2]))
-            hn, caches = _t5cb_hidden(params, cfg, cross, tok, caches, pos - 1,
-                                      pad_lens, bias)
-            if _attn.use_greedy_head(b):
-                from ...ops.greedy_head import greedy_argmax
-
-                nxt = greedy_argmax(hn[:, 0], params["classifier"]["w"].astype(hn.dtype))
-            else:
-                nxt = jnp.argmax(linear(params["classifier"], hn)[:, 0],
-                                 axis=-1).astype(jnp.int32)
+            nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         nxt = jnp.where(done, jnp.int32(eos_id), nxt)
         new_done = jnp.logical_or(done, jnp.logical_or(nxt == eos_id, pos + 1 >= limits))
         ends = jnp.where(jnp.logical_and(new_done, jnp.logical_not(done)), pos + 1, ends)
@@ -221,10 +193,7 @@ def _t5cb_steps_body(params, cfg, buf, pad_lens, limits, ends, caches, cross, po
 _t5cb_encode = partial(jax.jit, static_argnums=(1,))(_t5cb_encode_body)
 _t5cb_admit = partial(jax.jit, static_argnums=(1,))(_t5cb_admit_body)
 _t5cb_admit_i8 = partial(jax.jit, static_argnums=(1,))(_t5cb_admit_i8_body)
-# head_v (argnum 16) must be STATIC: traced, it gets captured by the
-# megakernel's head phase (``row < head_v``) and pallas_call rejects the
-# trace (same bug class as the whisper pool's _wcb_steps)
-_t5cb_steps = partial(jax.jit, static_argnums=(1, 9, 16, 17, 18))(_t5cb_steps_body)
+_t5cb_steps = partial(jax.jit, static_argnums=(1, 13, 14))(_t5cb_steps_body)
 
 
 class T5ContinuousBatchingGenerator:
@@ -255,49 +224,20 @@ class T5ContinuousBatchingGenerator:
     def _encode(self, params, cfg, enc_tokens, n_enc):
         return _t5cb_encode(params, cfg, enc_tokens, n_enc)
 
-    def _int8_modes(self, params, cfg, b: int, l_max: int) -> tuple[bool, bool]:
-        """(i8_self, i8_cross) pool modes, mirroring the plain generator's
-        gates (t5.py:395-411): fused megakernel only, TP pools stay bf16,
-        and int8 SELF additionally needs the group-tiled rel-pos bias to fit
-        the 128-lane score layout (g * H <= 128)."""
-        if cfg.layer.tp_axis is not None or not _t5_fused_ok(params["decoder"], cfg, l_max):
-            return False, False
-        g = b if b <= 8 else 8
-        return (_attn.use_int8_kv(b) and g * cfg.layer.n_heads <= 128,
-                _attn.use_int8_kv_cross(b))
-
     def _admit_i8(self, params, cfg, *args):
         return _t5cb_admit_i8(params, cfg, *args)
 
-    def _init_pool(self, params, cfg, b: int, l_max: int, t_pad: int,
-                   kv_group: int = 1):
-        """Build the pool state: ``(fused, packed, head, head_v, caches,
-        cross, bias_tab)`` — the fused-megakernel gate, zeroed self/cross
-        caches, and the pool-global decode-bias table (key-major (P, L, 128)
-        when fused, else (H, P, L)). ``kv_group > 1`` tiles the key-major
-        bias for the grouped int8 self-KV score layout (t5.py
-        _t5_key_major_bias)."""
+    def _init_pool(self, params, cfg, b: int, l_max: int, t_pad: int):
+        """Build the pool state: zeroed ``(caches, cross)`` self/cross caches
+        and the pool-global (H, P, L) decode-bias table."""
         dec = params["decoder"]
         lc = cfg.layer
         dtype = params["token_embs"].dtype
-        fused = _t5_fused_ok(dec, cfg, l_max)
         l_pad = tfm.padded_cache_len(l_max)
         # ONE global decode-bias table: rel-pos bias is a function of
         # q_pos - k_pos only, so the pool's shifted rows reuse it exactly
-        bias_table = relative_position_bias(
+        bias_tab = relative_position_bias(
             dec["attn_bias"], jnp.arange(l_max), jnp.arange(l_pad), False, cfg)
-        if fused:
-            from ...ops.decode_step import pack_decode_weights, pack_greedy_head
-
-            packed = pack_decode_weights(dec["layers"], dtype, gated=True, cross=True,
-                                         norm="rms")
-            head, head_v = pack_greedy_head(params["classifier"]["w"], dec["norm"], dtype,
-                                            tied=False,
-                                            a8=_attn.use_a8_decode(packed["wqkv"].dtype))
-            bias_tab = _t5_key_major_bias(bias_table, group=kv_group)
-        else:
-            packed = head = head_v = None
-            bias_tab = bias_table
         caches = tfm.make_kv_cache(cfg.n_layers, (b,), lc.n_heads, l_max, lc.head_dim,
                                    dtype=dtype, stacked=True)
         width = lc.n_heads * lc.head_dim
@@ -306,7 +246,7 @@ class T5ContinuousBatchingGenerator:
             "v": jnp.zeros((cfg.n_layers, b, t_pad, width), dtype),
             "len": jnp.zeros((cfg.n_layers, b), jnp.int32),
         }
-        return fused, packed, head, head_v, caches, cross, bias_tab
+        return caches, cross, bias_tab
 
     def _admit(self, params, cfg, *args):
         return _t5cb_admit(params, cfg, *args)
@@ -371,24 +311,15 @@ class T5ContinuousBatchingGenerator:
         # wider bucket changes nothing (and avoids per-length admit retraces)
         p_pad = -(-max(len(ts) for ts in token_lists) // ENC_BUCKET) * ENC_BUCKET
         t_pad = tfm.padded_cache_len(p_pad)
-        i8_self, i8_cross = self._int8_modes(params, cfg, b, l_max)
-        # kv_group only passed when int8 self engages: TP subclasses override
-        # _init_pool without the kwarg, and their _int8_modes never turns
-        # i8_self on (the per-op int8 kernel has no bias input)
-        kv_kw = {"kv_group": b if b <= 8 else 8} if i8_self else {}
-        fused, packed, head, head_v, caches, cross, bias_tab = self._init_pool(
-            params, cfg, b, l_max, t_pad, **kv_kw)
-        if i8_self or i8_cross:
-            from ._decoder_lm import quantize_kv_caches
-
-            # int8 pools: per-key int8 + scale planes; T5 has no self
-            # prefill, so quantized zeros ARE the initial self state and
-            # every decode step writes quantized (the plain generator's
-            # order, t5.py:395-411)
-            if i8_self:
-                caches = quantize_kv_caches(caches)
-            if i8_cross:
-                cross = quantize_kv_caches(cross)
+        i8_self, i8_cross = _attn.USE_INT8_KV, _attn.USE_INT8_KV_CROSS
+        caches, cross, bias_tab = self._init_pool(params, cfg, b, l_max, t_pad)
+        # int8 pools: per-key int8 + scales; T5 has no self prefill, so
+        # quantized zeros ARE the initial self state and every decode step
+        # writes quantized (the plain generator's order)
+        if i8_self:
+            caches = quantize_kv(caches)
+        if i8_cross:
+            cross = quantize_kv(cross)
         buf = jnp.zeros((b, l_max), jnp.int32)
         pad_lens = jnp.zeros((b,), jnp.int32)
         limits = jnp.zeros((b,), jnp.int32)
@@ -417,7 +348,7 @@ class T5ContinuousBatchingGenerator:
 
         while next_req < n_req or any(r is not None for r in slot_req):
             # buf_h/ends_h came with the scheduler view in ONE round trip
-            # after the last step chunk (ledger #39); finished rows'
+            # after the last step chunk; finished rows'
             # [pad:end) spans are never touched by admissions
             for row in range(b):
                 if slot_req[row] is not None and done_h[row]:
@@ -483,10 +414,10 @@ class T5ContinuousBatchingGenerator:
             pos_before = pos
             buf, ends, caches, pos_d, done = self._steps(
                 params, cfg, buf, pad_lens, limits, ends, caches, cross,
-                jnp.int32(pos), fused, done, jnp.int32(self.check_every), eos_id,
-                bias_tab, packed, head, head_v, topk, True if has_tp else None,
+                jnp.int32(pos), done, jnp.int32(self.check_every), eos_id,
+                bias_tab, topk, True if has_tp else None,
                 jnp.float32(1.0) if greedy else temps_d, keys, t0s, tps_d)
-            # ONE host round trip for the whole scheduler view (ledger #39)
+            # ONE host round trip for the whole scheduler view
             pos, done_h, ends_h, buf_h = jax.device_get((pos_d, done, ends, buf))
             pos = int(pos)
             done_h = np.array(done_h)

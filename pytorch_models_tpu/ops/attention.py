@@ -1,17 +1,18 @@
 """Scaled dot-product attention dispatch.
 
-TPU-native replacement for the reference's single hot kernel,
+Replacement for the reference's single hot kernel,
 ``F.scaled_dot_product_attention`` (reference transformer.py:52). One entry
 point serves every family: dense bidirectional (ViT/BERT), additive-bias
 (MaxViT windows, T5 relative bias), causal (GPT/GPT-2/Whisper-dec), and
 cross-attention (DETR/Whisper/T5-dec).
 
-The head-split entry point (``sdpa``) is a single XLA einsum path — the
-Pallas kernels (encoder_attention, decode_attention, decode_step) are
-selected UPSTREAM in transformer.py on merged-head layouts, where they win.
-A head-split blockwise flash kernel existed through round 3 and was retired:
-measured slower than plain XLA at every model shape once inputs are in its
-native split layout (tools/attn_bench.py; PERF.md ledger #23).
+The head-split entry point (``sdpa``) is a single XLA einsum path; for
+single-position self-attention decode over a long cache on the GPU,
+transformer.py picks the Triton decode kernel (ops/decode_attention.py) via
+:func:`use_decode_kernel`. Encoder and
+prefill attention stay on the einsum path: on an H100 (400 W limit) it
+measured faster in bf16 than ``jax.nn.dot_product_attention`` at ViT-B/16
+(L=197, batch 128) and Whisper-base (L=1500, batch 16 and 1) — PERF.md.
 """
 
 from __future__ import annotations
@@ -22,152 +23,40 @@ import jax
 import jax.numpy as jnp
 
 
-# single-position decode attention via the Pallas prefix-streaming kernel
-# (ops/decode_attention.py). None = auto (on for TPU: measured 4.6 -> 1.25
-# ms/step on GPT-2-small batch-32 decode, v5e); True forces it everywhere
-# (tests run it in interpret mode on CPU); False forces the einsum path.
-USE_DECODE_KERNEL: bool | None = None
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
-# fused decode step (ops/decode_step.py): the ENTIRE per-token layer stack in
-# one Pallas call with double-buffered weight-tile DMA. None = auto (on for
-# TPU: measured 1.098 ms/step at batch 32 / pos 544 on v5e = 90% of the
-# 0.99 ms HBM floor for that position's 812 MB of weights+KV; parity
-# 1-ulp-per-layer vs the per-op bf16 path); True forces it (interpret
-# tests); False forces the per-op path.
-USE_FUSED_STEP: bool | None = None
-
-
-def use_fused_step() -> bool:
-    if USE_FUSED_STEP is not None:
-        return USE_FUSED_STEP
-    return _on_tpu()
-
-
-# w8a8 decode (ops/decode_step.py ``a8=True``): when the fused step streams
-# int8 weights, ALSO quantize each phase's activation per row and run int8 x
-# int8 MXU dots — no per-tile int8->bf16 cast (the sublane relayout that made
-# cast-only w8a16 streaming slower than bf16, PERF.md #17b). Opt-in: it
-# changes numerics (8-bit per-phase rounding), so int8 models keep w8a16
-# behavior unless this is set True. Read at TRACE time.
-USE_A8_DECODE: bool = False
-
-
-def use_a8_decode(packed_wqkv_dtype) -> bool:
-    """True only when the mode is on AND the packed weights are int8."""
-    return USE_A8_DECODE and packed_wqkv_dtype == jnp.int8
-
-
-# in-kernel embed phase of the fused step (ops/decode_step.py ``emb=``): the
-# token/position row gathers move into the megakernel's layer-0 entry,
-# removing two gather-kernel launches + an add per decode step. MEASURED
-# NEGATIVE on hardware (PERF.md #31a, round-4 sweep): whisper B=1 RTF 1,134x
-# with it on vs 1,384x off — the per-row window DMAs at layer-0 entry delay
-# the QKV warmups by more than the saved launch glue. Default OFF everywhere;
-# None = auto (currently off), True forces it on. Env DECODE_EMBED=0/1
-# overrides for A/B sweeps (read at trace time).
-USE_FUSED_EMBED: bool | None = None
-
-
-def use_fused_embed(batch: int) -> bool:
-    import os
-
-    # env wins over the module flag (hardware A/B sweeps export DECODE_EMBED
-    # and must not be silently overridden by a flag left set elsewhere)
-    env = os.environ.get("DECODE_EMBED")
-    if env is not None:
-        return env == "1"
-    if USE_FUSED_EMBED is not None:
-        return USE_FUSED_EMBED
-    return False  # measured negative at every batch (PERF.md #31a)
-
-
-# int8 self-KV cache for the fused decode step (ops/decode_step.py
-# ``kv_scales=``, design + exact oracle in ops/int8_kv.py): K/V stored as
-# per-key symmetric int8 (+ f32 scale planes) and the attention dots run
-# int8 x int8 -> int32 on the MXU. Halves the DOMINANT stream of batched
-# decode (KV = 640 MB of the 885 MB GPT-2 batch-32 step). Opt-in: changes
-# numerics (per-key K/V + per-column prob rounding) and awaits the hardware
-# A/B (tools/int8_kv_hw_check.py). Env INT8_KV=0/1 overrides (trace time).
+# int8 self-KV caches (ops/int8_kv.py): K/V stored as per-key symmetric int8
+# (+ f32 scales) and dequantized on read. Halves the cache's bytes; opt-in
+# because it changes numerics (per-key rounding). Read at TRACE time.
 USE_INT8_KV: bool = False
 
-
-def _int8_kv_gate(env_name: str, flag: bool, batch: int) -> bool:
-    """Shared int8-KV gate: env override wins, and the batch must fit the
-    kernel's grouping (b <= 8 or b % 8 == 0: per-group scale DMAs need
-    8-aligned row sets)."""
-    import os
-
-    env = os.environ.get(env_name)
-    on = (env == "1") if env is not None else flag
-    return on and (batch <= 8 or batch % 8 == 0)
-
-
-def use_int8_kv(batch: int) -> bool:
-    return _int8_kv_gate("INT8_KV", USE_INT8_KV, batch)
-
-
-# int8 CROSS-KV caches (``kv_scales_x=``): whisper/T5 encoder caches are
-# write-once per request (quantize at encode time, zero per-step requant) and
-# are the DOMINANT decode stream at batch — whisper-base batch-16 streams
-# ~295 MB of cross K/V per step vs ~50 MB of weights. Legal for T5 too (its
-# rel-pos bias applies to SELF attention only). Opt-in, same grouping
-# constraint; env INT8_KV_CROSS=0/1 overrides (trace time).
+# int8 CROSS-KV caches: whisper/T5 encoder caches are write-once per request
+# (quantized at encode time), and legal for T5 too (its rel-pos bias applies
+# to SELF attention only). Opt-in, read at trace time.
 USE_INT8_KV_CROSS: bool = False
 
 
-def use_int8_kv_cross(batch: int) -> bool:
-    return _int8_kv_gate("INT8_KV_CROSS", USE_INT8_KV_CROSS, batch)
+# the decode kernel pays by skipping the cache slots past each row's valid
+# prefix; on an H100 it measured 1.7-1.8x faster end to end over GPT-2's
+# 1024-slot cache, slower over Whisper's full-length cross memory, and
+# between slower and 1.06x faster over Whisper's 128-slot self caches in
+# short runs (PERF.md), so shorter caches stay on the einsum until a longer
+# A/B decides
+MIN_KERNEL_CACHE = 1024
 
 
-# fused greedy head (ops/greedy_head.py): argmax(x @ emb.T) without the
-# (B, V) logits round-trip. None = auto (on for TPU at batch >= 4 — at B=1
-# the chunked matmuls lose to XLA's single streamed head, measured ~10%
-# on whisper single-segment); True forces it (interpret tests); False off.
-USE_GREEDY_HEAD: bool | None = None
+def use_decode_kernel(dtype, cache_len: int, head_dim: int, has_bias: bool,
+                      platform: str | None = None) -> bool:
+    """Kernel choice for single-position SELF-attention decode over a
+    merged-head cache: the Triton kernel on the GPU for bf16 caches of at
+    least ``MIN_KERNEL_CACHE`` slots with no additive bias; everything else
+    (fp32 parity runs, T5's rel-pos bias, short caches, the CPU) takes the
+    masked einsum path. Cross-attention memory is valid end to end, so the
+    kernel has nothing to skip there and it is never asked."""
+    from .decode_attention import BLOCK_K
 
-
-def use_greedy_head(batch: int = 4) -> bool:
-    if USE_GREEDY_HEAD is not None:
-        return USE_GREEDY_HEAD
-    return batch >= 4 and _on_tpu()
-
-
-def use_decode_kernel(cache_len: int, hd: int = 128) -> bool:
-    """Gate for the decode kernel at a given (static) cache length / H*D.
-
-    ``hd`` must be a 128 multiple: Mosaic DMA slices are lane-aligned, and a
-    (bb, bk, 192) cache-block copy fails to compile on hardware (every real
-    family has an even head count x 64, so this only excludes synthetic
-    configs — they take the einsum path).
-    """
-    from .decode_attention import KV_BLOCK
-
-    if cache_len % KV_BLOCK != 0 or hd % 128 != 0:
-        return False
-    return _on_tpu() if USE_DECODE_KERNEL is None else USE_DECODE_KERNEL
-
-
-# merged-head Pallas encoder attention (ops/encoder_attention.py). None =
-# auto (on for TPU: 1.66 -> 1.18 ms per ViT-B/16 attention block at batch
-# 128, v5e); True forces it (interpret-mode tests); False forces einsum.
-USE_ENCODER_KERNEL: bool | None = None
-
-
-def use_encoder_kernel(q_m, k_m, n_heads: int, attn_bias) -> bool:
-    """Gate for merged-head encoder attention on (..., L, H*D) projections."""
-    from .encoder_attention import encoder_attention_eligible
-
-    if not encoder_attention_eligible(q_m, k_m, n_heads, attn_bias):
-        return False
-    return _on_tpu() if USE_ENCODER_KERNEL is None else USE_ENCODER_KERNEL
+    platform = jax.default_backend() if platform is None else platform
+    return (platform == "gpu" and jnp.dtype(dtype) == jnp.bfloat16 and not has_bias
+            and cache_len >= MIN_KERNEL_CACHE and cache_len % BLOCK_K == 0
+            and head_dim in (16, 32, 64, 128, 256))
 
 
 def sdpa(
@@ -194,7 +83,7 @@ def _sdpa_xla(q, k, v, attn_bias, causal):
     prec = dot_precision(q)
     scale = 1.0 / math.sqrt(q.shape[-1])
     # fp32 inputs: fp32 softmax (parity). bf16 serving: keep scores in bf16 —
-    # the fp32 upcast doubles the HBM traffic of the (.., Lq, Lk) score
+    # the fp32 upcast doubles the memory traffic of the (.., Lq, Lk) score
     # tensor, which dominates encoder attention time at these lengths.
     acc_dtype = jnp.float32 if q.dtype == jnp.float32 else q.dtype
     logits = jnp.einsum("...qd,...kd->...qk", q, k, precision=prec).astype(acc_dtype)
@@ -209,11 +98,9 @@ def _sdpa_xla(q, k, v, attn_bias, causal):
     if acc_dtype == jnp.float32:
         probs = jax.nn.softmax(logits, axis=-1).astype(q.dtype)
     else:
-        # bf16 serving: scores stay bf16 (the HBM-traffic win) but the
-        # normalization accumulates in fp32 — a bf16 sum over 1024+ terms
-        # carries ~3-significant-digit error, and this matches the Pallas
-        # kernels' fp32 online softmax so numerics don't jump at kernel
-        # eligibility boundaries. The fp32 intermediates fuse away in XLA.
+        # bf16 serving: scores stay bf16 but the normalization accumulates in
+        # fp32 — a bf16 sum over 1024+ terms carries ~3-significant-digit
+        # error. The fp32 intermediates fuse away in XLA.
         m = jnp.max(logits, axis=-1, keepdims=True)
         e = jnp.exp(logits - m)
         denom = jnp.sum(e.astype(jnp.float32), axis=-1, keepdims=True)

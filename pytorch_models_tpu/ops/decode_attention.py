@@ -1,37 +1,34 @@
-"""Pallas decode attention: single-position queries against a merged-head KV cache.
+"""Pallas (Triton route) decode attention over a merged-head KV cache.
 
-Replaces the XLA lowering of S=1 attention, which is the decode bottleneck
-(measured on v5e, GPT-2-small batch 32, L=1024):
+Single-position queries (one new token per batch row) attend to a
+preallocated cache ``(B, L, H*D)`` — the exact layout the K/V projections
+produce. The masked einsum path (transformer.py) splits heads and reads the
+WHOLE preallocated cache every step; at GPT-2-small batch 32 with a 640-slot
+cache that is ~755 MB of K/V per step against ~340 MB for the valid prefix.
+This kernel reads only the keys in ``[pad_lens[b], ends[b])``.
 
-- XLA lowers S=1 attention einsums to VPU loop fusions that run at ~7% of HBM
-  bandwidth (758k + 710k estimated cycles per layer — ~90% of the decode step).
-- A (B, H, S, 64) cache is physically lane-padded to 128 in HBM (T(8,128)
-  tiling), wasting 2x memory AND 2x bandwidth on every read.
+Design (split-K flash decoding, after the Triton decode kernel shipped with
+JAX in ``jax/experimental/pallas/ops/gpu/decode_attention.py``, which is NOT
+called here: its ``gqa`` swaps the cache's axes on every call, a full-cache
+copy):
 
-Design (see also reference transformer.py:52 for the op this replaces —
-the reference has no decode path at all and re-forwards the whole prefix,
-reference text/generator.py:23-24):
+- grid ``(B, H, S)``: one program per (batch row, head, key split). Block
+  specs slice the merged-head cache in place — head ``h`` is the lane range
+  ``[h*D, (h+1)*D)`` — so nothing is transposed or copied. (Programs that
+  each take a group of heads, for longer contiguous rows, measured slower
+  at GPT-2's decode shape: PERF.md.)
+- each program loops over ``block_k``-key blocks of its split, but only the
+  blocks that intersect ``[pad, end)``: the loop bounds are dynamic, so the
+  bytes read follow the true prefix length, not the preallocated maximum.
+- per block: scores are a ``(block_k, D)`` multiply-reduce (one query row
+  per head: no matrix unit to fill), fp32 online softmax, ``p @ V`` likewise.
+- S is chosen from the static shapes: 1 when the (row, head) programs
+  alone fill the card (the kernel then writes the normalised output), more
+  at small batch, where the S partial results (unnormalised output, running
+  max, running sum) are combined in XLA.
 
-- The KV cache is stored **merged-head**: ``(B, L, H*D)`` — the exact shape
-  the K/V projections produce, so the per-step cache write is one
-  ``dynamic_update_slice`` of the projection output (no head split, no
-  transpose, no lane padding: H*D is a multiple of 128 for every family).
-- Grid ``(B,)``: each program streams its row's K/V prefix in contiguous
-  ``(bk, H*D)`` blocks with double-buffered DMA, reading ONLY
-  ``ceil(end/bk)`` blocks — step traffic scales with the true sequence
-  length, not the preallocated maximum.
-- Per-head scores via a one-hot head-expander matmul: with
-  ``E[d, h] = (d // D == h)``, ``scores = (K * q) @ E`` gives all heads'
-  (bk, H) logits in one MXU pass over contiguous shapes; ``p @ E.T``
-  broadcasts the (bk, H) softmax back to (bk, H*D) lanes for the V
-  accumulation. fp32 online softmax across blocks.
-- Valid key range is ``[pad_lens[b], ends[b])`` per row: left pads support
-  batched left-aligned generation; per-row ends support cross-attention over
-  (padded) encoder memory and self-attention decode (``ends = pos + 1``).
-
-Measured (v5e, GPT-2-small batch 32, bf16, in the full 12-layer decode loop):
-4.6 ms/step XLA -> 1.25 ms/step with this kernel, independent of the
-preallocated cache length.
+``interpret=True`` runs the same kernel in the Pallas interpreter on the CPU
+(tests only); on the card it is always compiled through Triton.
 """
 
 from __future__ import annotations
@@ -43,167 +40,70 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 NEG_INF = -1e30
 
-# KV caches consumed by this kernel must have length a multiple of this
-# (transformer.make_kv_cache / precompute_cross_caches round up).
-KV_BLOCK = 128
-BB_MAX = 8  # max batch rows packed per program
+BLOCK_K = 32  # keys per loop step; caches are whole multiples of it
+# programs for two waves over an H100's 132 SMs: below this the key axis splits
+MIN_PROGRAMS = 264
 
 
-def _kernel(ends_ref, pad_ref, q_ref, k_hbm, v_hbm, *rest, bk: int, scale: float,
-            n_heads: int, d: int, prec, bias_shared: bool = False, bb: int = 1):
-    """``bb`` batch rows per program: at decode batch sizes the per-program
-    launch overhead (~2 µs × B × n_layers per step) otherwise dominates the
-    step — packing rows cut the measured GPT-2 batch-32 decode loop from 1.11
-    to well under a ms/step. All packed rows are processed by ONE batched
-    ``(bb*bk, ·)`` dot per block: per-row ``(1, ·)`` dots are MXU
-    fill-dominated (a 128-cycle weight-tile load amortized over 1 streamed
-    row) and were the dominant cost of the round-2 kernel."""
-    if len(rest) == 2:  # (bias_hbm, o_ref) — additive per-key bias (T5 rel-pos)
-        bias_hbm, o_ref = rest
-    else:
-        (o_ref,) = rest
-        bias_hbm = None
-    b0 = pl.program_id(0) * bb
-    hd = n_heads * d
-
-    # shared block range over the packed rows; per-row masks (+ the safe-max
-    # softmax) keep rows whose [pad, end) misses a block exact
-    first = pad_ref[b0] // bk
-    n_blocks = (ends_ref[b0] + bk - 1) // bk
-    for r in range(1, bb):
-        first = jnp.minimum(first, pad_ref[b0 + r] // bk)
-        n_blocks = jnp.maximum(n_blocks, (ends_ref[b0 + r] + bk - 1) // bk)
-
-    def body(k_scratch, v_scratch, bias_scratch, sem):
-        def copies(i, slot):
-            cps = [
-                pltpu.make_async_copy(k_hbm.at[pl.ds(b0, bb), pl.ds(i * bk, bk), :],
-                                      k_scratch.at[slot], sem.at[slot, 0]),
-                pltpu.make_async_copy(v_hbm.at[pl.ds(b0, bb), pl.ds(i * bk, bk), :],
-                                      v_scratch.at[slot], sem.at[slot, 1]),
-            ]
-            if bias_hbm is not None:
-                if bias_shared:
-                    cps.append(pltpu.make_async_copy(
-                        bias_hbm.at[pl.ds(0, 1), pl.ds(i * bk, bk), :], bias_scratch.at[slot],
-                        sem.at[slot, 2]))
-                else:
-                    cps.append(pltpu.make_async_copy(
-                        bias_hbm.at[pl.ds(b0, bb), pl.ds(i * bk, bk), :], bias_scratch.at[slot],
-                        sem.at[slot, 2]))
-            return cps
-
-        # degenerate packs (every row's [pad, end) empty, e.g. all-empty
-        # cross-attention valid_lens) must not start copies that are never
-        # waited — pending semaphores at run_scoped exit are UB on hardware
-        @pl.when(first < n_blocks)
-        def _():
-            for cp in copies(first, lax.rem(first, 2)):
-                cp.start()
-
-        # head-expander: E[d_full, h] = 1 iff lane d_full belongs to head h.
-        # Kept in the COMPUTE dtype: bf16 serving feeds the MXU bf16 operands
-        # directly (0/1 entries are exact in any dtype).
-        cdt = jnp.float32 if q_ref.dtype == jnp.float32 else q_ref.dtype
-        col_head = lax.broadcasted_iota(jnp.int32, (hd, n_heads), 0) // d
-        head_id = lax.broadcasted_iota(jnp.int32, (hd, n_heads), 1)
-        e_mat = (col_head == head_id).astype(cdt)  # (H*D, H)
-
-        # scale in fp32 (exact for bf16 inputs), then drop to compute dtype
-        q_all = (q_ref[:, 0, :].astype(jnp.float32) * scale).astype(cdt)  # (bb, H*D)
-
-        # per-row valid ranges as (bb, 1, 1) vectors (assembled from the
-        # prefetched SMEM scalars once, outside the block loop)
-        ends_v = jnp.concatenate(
-            [jnp.full((1, 1, 1), ends_ref[b0 + r], jnp.int32) for r in range(bb)], 0)
-        pad_v = jnp.concatenate(
-            [jnp.full((1, 1, 1), pad_ref[b0 + r], jnp.int32) for r in range(bb)], 0)
-
-        def step(i, carry):
-            ms, ls, accs = carry  # (bb,H), (bb,H), (bb,H*D) fp32
-            slot = lax.rem(i, 2)
-
-            @pl.when(i + 1 < n_blocks)
-            def _():
-                for cp in copies(i + 1, lax.rem(i + 1, 2)):
-                    cp.start()
-
-            for cp in copies(i, slot):
-                cp.wait()
-
-            # all rows' scores in one MXU pass: s[b,i,h] = sum_d k*q*E
-            kq = (k_scratch[slot].astype(cdt) * q_all[:, None, :]).reshape(bb * bk, hd)
-            s = lax.dot_general(kq, e_mat, (((1,), (0,)), ((), ())),
-                                preferred_element_type=jnp.float32,
-                                precision=prec).reshape(bb, bk, n_heads)
-            if bias_hbm is not None:
-                # bias is lane-padded to 128 (DMA slices must be lane-
-                # aligned); reading the first H lanes is a plain VMEM load
-                if bias_shared:
-                    s = s + bias_scratch[slot, 0][:, :n_heads].astype(jnp.float32)[None]
-                else:
-                    s = s + bias_scratch[slot][:, :, :n_heads].astype(jnp.float32)
-            k_idx = i * bk + lax.broadcasted_iota(jnp.int32, (1, bk, 1), 1)
-            valid = jnp.logical_and(k_idx < ends_v, k_idx >= pad_v)  # (bb, bk, 1)
-            s = jnp.where(valid, s, NEG_INF)
-
-            m_new = jnp.maximum(ms, jnp.max(s, axis=1))  # (bb, H)
-            # safe max: with shared block range a row may see an all-masked
-            # block (exp(s - m) must underflow to 0, not become exp(0))
-            m_safe = jnp.maximum(m_new, jnp.float32(NEG_INF / 2))
-            p = jnp.exp(s - m_safe[:, None, :])  # (bb, bk, H) fp32
-            alpha = jnp.exp(ms - m_safe)  # (bb, H)
-            l_new = alpha * ls + jnp.sum(p, axis=1)
-
-            # broadcast softmax back to merged-head lanes and accumulate V
-            p_full = lax.dot_general(p.astype(cdt).reshape(bb * bk, n_heads), e_mat,
-                                     (((1,), (1,)), ((), ())),
-                                     preferred_element_type=jnp.float32,
-                                     precision=prec).reshape(bb, bk, hd)
-            alpha_full = lax.dot_general(alpha, e_mat.astype(jnp.float32), (((1,), (1,)), ((), ())),
-                                         preferred_element_type=jnp.float32, precision=prec)
-            pv = jnp.sum(p_full * v_scratch[slot].astype(jnp.float32), axis=1)  # (bb, H*D)
-            return m_new, l_new, accs * alpha_full + pv
-
-        init = (jnp.full((bb, n_heads), NEG_INF, jnp.float32),
-                jnp.zeros((bb, n_heads), jnp.float32),
-                jnp.zeros((bb, hd), jnp.float32))
-        ms, ls, accs = lax.fori_loop(first, n_blocks, step, init)
-        ls = jnp.where(ls == 0.0, 1.0, ls)
-        l_full = lax.dot_general(ls, e_mat.astype(jnp.float32), (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.float32, precision=prec)  # (bb, H*D)
-        o_ref[...] = (accs / l_full).astype(o_ref.dtype)[:, None, :]
-
-    bias_minor = bias_hbm.shape[-1] if bias_hbm is not None else 128
-    pl.run_scoped(
-        body,
-        k_scratch=pltpu.VMEM((2, bb, bk, hd), k_hbm.dtype),
-        v_scratch=pltpu.VMEM((2, bb, bk, hd), v_hbm.dtype),
-        bias_scratch=(pltpu.VMEM((2, 1 if bias_shared else bb, bk, bias_minor), bias_hbm.dtype)
-                      if bias_hbm is not None else pltpu.VMEM((2, 1, 8, 128), jnp.float32)),
-        sem=pltpu.SemaphoreType.DMA((2, 3)),
-    )
+def num_splits(b: int, n_heads: int, l_max: int, block_k: int = BLOCK_K) -> int:
+    """Key splits per (row, head): the fewest that reach ``MIN_PROGRAMS``
+    programs, capped at one block per split and divisible into the cache."""
+    n_blocks = l_max // block_k
+    s = max(1, min(n_blocks, -(-MIN_PROGRAMS // (b * n_heads))))
+    while n_blocks % s:
+        s -= 1
+    return s
 
 
-@functools.partial(jax.jit, static_argnames=("n_heads", "block_k"))
+def _kernel(ends_ref, pads_ref, q_ref, k_ref, v_ref, *out_refs, block_k: int,
+            split_len: int, scale: float):
+    """``out_refs``: the normalised output (one split), or the split's
+    unnormalised output, running max and running sum (several splits)."""
+    split0 = pl.program_id(2) * split_len
+    lo = jnp.maximum(pads_ref[...] - split0, 0)  # split-local valid range
+    hi = jnp.minimum(ends_ref[...] - split0, split_len)
+    q = q_ref[...].astype(jnp.float32) * scale  # (D,)
+
+    def body(i, carry):
+        m, l, acc = carry
+        start = pl.multiple_of(i * block_k, block_k)
+        idx = start + jnp.arange(block_k)
+        valid = (idx >= lo) & (idx < hi)
+        k = k_ref[pl.ds(start, block_k), :].astype(jnp.float32)  # (block_k, D)
+        s = jnp.where(valid, jnp.sum(k * q[None, :], axis=1), NEG_INF)
+        m_new = jnp.maximum(m, jnp.max(s))
+        p = jnp.where(valid, jnp.exp(s - m_new), 0.0)
+        alpha = jnp.exp(m - m_new)
+        v = v_ref[pl.ds(start, block_k), :].astype(jnp.float32)
+        acc = acc * alpha + jnp.sum(p[:, None] * v, axis=0)
+        return m_new, l * alpha + jnp.sum(p), acc
+
+    init = (jnp.float32(NEG_INF), jnp.float32(0.0), jnp.zeros(q.shape, jnp.float32))
+    m, l, acc = lax.fori_loop(lo // block_k, pl.cdiv(hi, block_k), body, init)
+    if len(out_refs) == 1:  # an empty row (l == 0) returns zeros
+        out_refs[0][...] = (acc / jnp.where(l == 0.0, 1.0, l)).astype(out_refs[0].dtype)
+        return
+    o_ref, m_ref, l_ref = out_refs
+    o_ref[...] = acc
+    m_ref[...] = m
+    l_ref[...] = l
+
+
+@functools.partial(jax.jit, static_argnames=("n_heads", "block_k", "interpret"))
 def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None,
-                     bias=None, block_k: int = KV_BLOCK):
+                     block_k: int = BLOCK_K, interpret: bool = False):
     """q: (B, 1, H*D); k_cache/v_cache: (B, L, H*D); ends: scalar or (B,) int.
 
     Attention over cache positions ``[pad_lens[b], ends[b])`` per batch row;
-    returns (B, 1, H*D) merged-head context (feed straight to the out-proj).
-    ``L`` must be a multiple of ``block_k``; slots in the valid range must
-    already hold this step's K/V. Unbatched (1, H*D) inputs are promoted.
-    For self-attention decode at position ``pos``, pass ``ends = pos + 1``.
-
-    ``bias``: optional additive per-key logit bias in **key-major** layout
-    ``(1, L, H)`` (shared across rows — T5's rel-pos bias) or ``(B, L, H)``,
-    streamed block-by-block with the cache. This is the transpose of the
-    einsum path's (H, 1, L): blocks land as (bk, H), the kernel's score shape.
+    returns the (B, 1, H*D) merged-head context (feed straight to the
+    out-projection). ``L`` must be a multiple of ``block_k``; slots in the
+    valid range must already hold this step's K/V. Unbatched ``(1, H*D)``
+    inputs are promoted. For self-attention decode at position ``pos`` pass
+    ``ends = pos + 1``; a row whose range is empty returns zeros.
     """
     unbatched = q.ndim == 2
     if unbatched:
@@ -211,53 +111,54 @@ def decode_attention(q, k_cache, v_cache, ends, n_heads: int, pad_lens=None,
     b, lq, hd = q.shape
     l_max = k_cache.shape[-2]
     d = hd // n_heads
-    assert lq == 1, "decode kernel is single-position"
-    assert hd % n_heads == 0
-    assert l_max % block_k == 0, f"cache length {l_max} not a multiple of block_k={block_k}"
-    if bias is not None:
-        assert bias.ndim == 3 and bias.shape[0] in (1, b) and bias.shape[1:] == (l_max, n_heads), (
-            f"bias must be (1|B, {l_max}, {n_heads}), got {bias.shape}")
-        # lane-pad the head dim to the 128 tile: Mosaic DMA slices must be
-        # lane-aligned (a (bk, 6) block copy fails to compile on hardware)
-        h_pad = -n_heads % 128
-        if h_pad:
-            bias = jnp.pad(bias, ((0, 0), (0, 0), (0, h_pad)))
+    if lq != 1 or hd % n_heads:
+        raise ValueError(f"decode attention takes one query per row, got q {q.shape}")
+    if l_max % block_k:
+        raise ValueError(f"cache length {l_max} is not a multiple of block_k={block_k}")
+    s = num_splits(b, n_heads, l_max, block_k)
+    split_len = l_max // s
 
     ends_arr = jnp.broadcast_to(jnp.asarray(ends, jnp.int32).reshape(-1), (b,))
     pad_arr = (jnp.zeros((b,), jnp.int32) if pad_lens is None
                else jnp.broadcast_to(jnp.asarray(pad_lens, jnp.int32).reshape(-1), (b,)))
-    # fp32 inputs get full-precision MXU passes (parity); bf16 is the fast path
-    prec = lax.Precision.HIGHEST if q.dtype == jnp.float32 else lax.Precision.DEFAULT
 
-    # rows per program: amortize the per-program launch cost, bounded by a
-    # VMEM budget for the double-buffered (bb, bk, H*D) K/V blocks (+ the
-    # lane-padded per-row bias scratch when a bias is streamed)
-    itemsize = jnp.dtype(k_cache.dtype).itemsize
-    bytes_per_row = 2 * 2 * block_k * hd * itemsize
-    if bias is not None and bias.shape[0] != 1:
-        bytes_per_row += 2 * block_k * bias.shape[-1] * jnp.dtype(bias.dtype).itemsize
-    bb = max(1, min(BB_MAX, (8 * 1024 * 1024) // bytes_per_row))
-    while b % bb:
-        bb -= 1
-
-    any_spec = pl.BlockSpec(memory_space=pltpu.MemorySpace.ANY)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(b // bb,),
+    row = pl.BlockSpec((None,), lambda i, h, j: (i,))
+    part = pl.BlockSpec((None, None, None), lambda i, h, j: (i, j, h))
+    if s == 1:
+        out_specs = pl.BlockSpec((None, None, d), lambda i, h, j: (i, 0, h))
+        out_shape = jax.ShapeDtypeStruct((b, 1, hd), q.dtype)
+    else:
+        out_specs = [pl.BlockSpec((None, None, d), lambda i, h, j: (i, j, h)), part, part]
+        out_shape = [jax.ShapeDtypeStruct((b, s, hd), jnp.float32),
+                     jax.ShapeDtypeStruct((b, s, n_heads), jnp.float32),
+                     jax.ShapeDtypeStruct((b, s, n_heads), jnp.float32)]
+    outs = pl.pallas_call(
+        functools.partial(_kernel, block_k=block_k, split_len=split_len,
+                          scale=1.0 / math.sqrt(d)),
+        grid=(b, n_heads, s),
         in_specs=[
-            pl.BlockSpec((bb, 1, hd), lambda i, ends_ref, pad_ref: (i, 0, 0)),
-            any_spec,
-            any_spec,
-        ] + ([any_spec] if bias is not None else []),
-        out_specs=pl.BlockSpec((bb, 1, hd), lambda i, ends_ref, pad_ref: (i, 0, 0)),
-    )
-    operands = (ends_arr, pad_arr, q, k_cache, v_cache)
-    if bias is not None:
-        operands = operands + (bias,)
-    out = pl.pallas_call(
-        functools.partial(_kernel, bk=block_k, scale=1.0 / math.sqrt(d), n_heads=n_heads, d=d,
-                          prec=prec, bias_shared=bias is not None and bias.shape[0] == 1, bb=bb),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, 1, hd), q.dtype),
-    )(*operands)
+            row,
+            row,
+            pl.BlockSpec((None, None, d), lambda i, h, j: (i, 0, h)),
+            pl.BlockSpec((None, split_len, d), lambda i, h, j: (i, j, h)),
+            pl.BlockSpec((None, split_len, d), lambda i, h, j: (i, j, h)),
+        ],
+        out_specs=out_specs,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        interpret=interpret,
+        name="decode_attention",
+    )(ends_arr, pad_arr, q, k_cache, v_cache)
+    if s == 1:
+        return outs[0] if unbatched else outs
+
+    # combine the key splits (flash-decoding's second pass)
+    o, m, l = outs
+    m_max = jnp.max(m, axis=1, keepdims=True)  # (B, 1, H)
+    corr = jnp.exp(m - m_max)  # (B, S, H); empty splits carry l = 0, o = 0
+    l_tot = jnp.sum(l * corr, axis=1)  # (B, H)
+    o = jnp.sum(o.reshape(b, s, n_heads, d) * corr[..., None], axis=1)
+    o = o / jnp.where(l_tot == 0.0, 1.0, l_tot)[..., None]
+    out = o.reshape(b, 1, hd).astype(q.dtype)
     return out[0] if unbatched else out

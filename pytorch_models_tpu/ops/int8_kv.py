@@ -1,43 +1,15 @@
-"""int8 KV-cache decode attention: halve the dominant stream of batched decode.
+"""int8 KV-cache storage: per-key symmetric int8 with f32 scales.
 
-At GPT-2-small batch 32 / pos 544 the KV cache is 640 MB of the 885 MB a
-decode step moves (PERF.md #29) — weights are already streamed at 90% of the
-HBM floor by the fused step (ops/decode_step.py), so the cache is the last
-big bandwidth lever. This module stores K/V as **per-key symmetric int8**
-(+ f32 scales) and runs the attention dots as int8 x int8 -> int32 MXU ops,
-avoiding BOTH traps measured in round 3:
+An opt-in serving mode (``ops.attention.USE_INT8_KV`` / ``USE_INT8_KV_CROSS``)
+that halves the bytes a KV cache holds. Each cached key/value row (one
+position of one batch row, over the full merged-head width) is quantized
+symmetrically to int8 with one f32 scale. Attention dequantizes on read and
+runs the ordinary masked path (transformer.py), so the attention math is the
+bf16/fp32 path's; the only loss is the per-key rounding (~0.4% relative).
 
-- the int8->bf16 *tile cast* (a sublane relayout that made cast-only w8a16
-  weight streaming SLOWER than bf16, PERF.md #17b): K/V tiles are consumed
-  in their native int8 layout by the MXU;
-- the S=1 VPU fusion trap (ops/decode_attention.py docstring): all math is
-  batched MXU dots over contiguous merged-head blocks.
-
-Design (the "K_i8 @ (q_i8*e_mat)" form, CLAUDE.md backlog #12):
-
-- **Scores**: a per-step block-diagonal q-expander ``Q[c, i*H+h] =
-  q[i, c] * (c in head h)``, quantized per column (= per row-head pair), turns
-  the per-row q.K contraction into ONE int8 matmul per g-row group:
-  ``K_flat (g*bk, hd) @ Q (hd, g*H) -> int32``; cross-row (i' != i) entries
-  are masked to -inf before the softmax. MXU waste is g-fold (not batch-fold)
-  and int8 MACs are cheap: ~15 G per GPT-2 step at g=8 vs 320 MB of HBM saved.
-- **PV**: the per-key V scales ride into the f32 softmax probs (they commute
-  with nothing else — V's key axis is contracted), probs quantize per column,
-  and ``p_i8 (g*bk, g*H) -0contract- V_flat (g*bk, hd) -> int32 (g*H, hd)``;
-  per-head context is extracted with iota-mask matmuls (no transposes, no
-  relayouts except the tiny per-block prob quantization).
-- **Scales layout**: batch-major ``(B8, Lmax) f32`` so the per-block DMA
-  slice ``[:, i*bk:(i+1)*bk]`` is lane-aligned — int8 mode therefore fixes
-  ``bk = 128`` (Mosaic DMA lane-offset rule, CLAUDE.md).
-- **Current position**: this step's K/V ride in as bf16/f32; K is quantized
-  in-kernel with the SAME per-key rule the cache write uses, so a key scores
-  identically as "current" and when later streamed from the cache. V stays
-  full precision for the current position (one step of extra fidelity).
-
-Numerics: int dots are exact (int32 accumulation); the only losses are the
-per-key K/V rounding (~0.4% relative) and the per-column prob rounding
-(probs below ~max/127 round to 0 — the SageAttention-style approximation).
-This is an OPT-IN serving mode; tests pin the exact quantized-math oracle.
+Cache layout: ``{"k", "v"}`` int8 of the bf16 cache's shape ``(..., L, H*D)``
+plus ``{"ks", "vs"}`` f32 scales of shape ``(..., L)``. Unwritten slots are
+zeros and quantize harmlessly (q = 0, scale 1/127).
 
 Capability replaced: reference transformer.py:52 attention at decode shapes
 (the reference has no decode path at all, text/generator.py:23-24).
@@ -45,26 +17,16 @@ Capability replaced: reference transformer.py:52 attention at decode shapes
 
 from __future__ import annotations
 
-import functools
-import math
-
-import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-NEG_INF = -1e30
-KV_BLOCK_INT8 = 128  # scale-DMA lane alignment fixes the block size
 
 
 def quantize_rows(x, axis: int = -1, tp_axis: str | None = None):
     """Symmetric per-row int8 quantization along ``axis``.
 
     Returns ``(x_q int8, scales f32)`` with ``scales`` keeping the reduced
-    axis (size 1); all-zero rows get the harmless scale 1/127 (the a8
-    convention, ops/decode_step.py). Matches the kernel's and the oracle's
-    rule bit-for-bit (round-half-to-even, clip to [-127, 127]).
+    axis (size 1); all-zero rows get the harmless scale 1/127 (round-half-
+    to-even, clip to [-127, 127]).
 
     ``tp_axis``: inside a shard_map whose ranks hold width shards of ``x``
     (tensor-parallel KV), the absmax pmaxes over the mesh axis so every rank
@@ -80,469 +42,17 @@ def quantize_rows(x, axis: int = -1, tp_axis: str | None = None):
     return x_q, scales
 
 
-def _b8(b: int) -> int:
-    return max(8, -(-b // 8) * 8)
+def dequantize(x_q, scales, dtype):
+    """int8 ``(..., L, W)`` + f32 ``(..., L)`` scales -> ``dtype``."""
+    return (x_q.astype(jnp.float32) * scales[..., None]).astype(dtype)
 
 
-def make_int8_kv_cache(b: int, l_max: int, hd: int, dtype=jnp.int8):
-    """(k_q, v_q, k_s, v_s): int8 caches (B, Lmax, H*D) + batch-major scale
-    planes (B8, Lmax) f32 (B8 = batch padded to the 8-sublane DMA tile)."""
-    assert l_max % KV_BLOCK_INT8 == 0, f"l_max must pad to {KV_BLOCK_INT8}"
-    kq = jnp.zeros((b, l_max, hd), dtype)
-    return kq, kq, jnp.ones((_b8(b), l_max), jnp.float32), jnp.ones((_b8(b), l_max), jnp.float32)
-
-
-def write_int8_kv(k_q, v_q, k_s, v_s, k_new, v_new, pos):
-    """Quantize this step's (B, 1, H*D) K/V and write cache slot ``pos``
-    (+ the matching scale lanes). Mirrors the bf16 path's one
-    dynamic_update_slice per cache."""
-    b = k_new.shape[0]
-    kq_new, ks_new = quantize_rows(k_new.reshape(b, 1, -1))
-    vq_new, vs_new = quantize_rows(v_new.reshape(b, 1, -1))
-    start = (0, pos, 0)
-    pad = _b8(b) - b
-
-    def scale_col(s):  # (B, 1, 1) -> (B8, 1)
-        col = s.reshape(b, 1)
-        return jnp.pad(col, ((0, pad), (0, 0)), constant_values=1.0) if pad else col
-
-    return (lax.dynamic_update_slice(k_q, kq_new, start),
-            lax.dynamic_update_slice(v_q, vq_new, start),
-            lax.dynamic_update_slice(k_s, scale_col(ks_new), (0, pos)),
-            lax.dynamic_update_slice(v_s, scale_col(vs_new), (0, pos)))
-
-
-def prefill_int8_kv(k_q, v_q, k_s, v_s, k_chunk, v_chunk, start_pos: int = 0):
-    """Quantize a (B, Lp, H*D) prefix chunk per key and write it at
-    ``start_pos`` (prefill counterpart of :func:`write_int8_kv`)."""
-    b, lp, _ = k_chunk.shape
-    kq_c, ks_c = quantize_rows(k_chunk)
-    vq_c, vs_c = quantize_rows(v_chunk)
-    pad = _b8(b) - b
-
-    def plane(s):  # (B, Lp, 1) -> (B8, Lp)
-        p = s[..., 0]
-        return jnp.pad(p, ((0, pad), (0, 0)), constant_values=1.0) if pad else p
-
-    return (lax.dynamic_update_slice(k_q, kq_c, (0, start_pos, 0)),
-            lax.dynamic_update_slice(v_q, vq_c, (0, start_pos, 0)),
-            lax.dynamic_update_slice(k_s, plane(ks_c), (0, start_pos)),
-            lax.dynamic_update_slice(v_s, plane(vs_c), (0, start_pos)))
-
-
-def _quant_cols(x32):
-    """Per-column symmetric int8 of an f32 matrix; returns (x_q, (1, N) f32)."""
-    absmax = jnp.max(jnp.abs(x32), axis=0, keepdims=True)
-    s = jnp.where(absmax == 0.0, 1.0, absmax) * (1.0 / 127.0)
-    return jnp.clip(jnp.round(x32 / s), -127, 127).astype(jnp.int8), s
-
-
-def _kernel(ends_ref, pad_ref, qt_ref, curk_ref, curv_ref, curks_ref, k_hbm,
-            v_hbm, sk_hbm, sv_hbm, o_ref, *, bk: int, scale: float,
-            n_heads: int, d: int, g: int, prec, has_cur: bool,
-            has_cur_s: bool, compact: bool):
-    b0 = pl.program_id(0) * g
-    hd = n_heads * d
-    gh = g * n_heads
-    f32 = jnp.float32
-
-    # shared block range over the g packed rows (per-row masks keep it exact)
-    first = pad_ref[b0] // bk
-    n_blocks = (ends_ref[b0] + bk - 1) // bk
-    for r in range(1, g):
-        first = jnp.minimum(first, pad_ref[b0 + r] // bk)
-        n_blocks = jnp.maximum(n_blocks, (ends_ref[b0 + r] + bk - 1) // bk)
-
-    def body(k_scr, v_scr, sk_scr, sv_scr, sem):
-        def copies(i, slot):
-            return [
-                pltpu.make_async_copy(k_hbm.at[pl.ds(b0, g), pl.ds(i * bk, bk), :],
-                                      k_scr.at[slot], sem.at[slot, 0]),
-                pltpu.make_async_copy(v_hbm.at[pl.ds(b0, g), pl.ds(i * bk, bk), :],
-                                      v_scr.at[slot], sem.at[slot, 1]),
-                # scale planes are (B8, Lmax): always copy a full 8-sublane
-                # window (g may be < 8; the plane is row-padded for this)
-                pltpu.make_async_copy(sk_hbm.at[pl.ds(b0, 8), pl.ds(i * bk, bk)],
-                                      sk_scr.at[slot], sem.at[slot, 2]),
-                pltpu.make_async_copy(sv_hbm.at[pl.ds(b0, 8), pl.ds(i * bk, bk)],
-                                      sv_scr.at[slot], sem.at[slot, 3]),
-            ]
-
-        @pl.when(first < n_blocks)
-        def _():
-            for cp in copies(first, lax.rem(first, 2)):
-                cp.start()
-
-        # ---- per-step int8 q-expander: Q[c, i*H+h] = q_s[i, c]*(c in head h),
-        # quantized per COLUMN (= per row-head pair). Built once per call:
-        # replicate q's columns H-fold with a selector matmul, mask by head.
-        qt = qt_ref[0].astype(f32) * scale  # (hd, g)
-        sel_ig = lax.broadcasted_iota(jnp.int32, (g, gh), 0)
-        sel_m = lax.broadcasted_iota(jnp.int32, (g, gh), 1)
-        sel = (sel_m // n_heads == sel_ig).astype(f32)  # (g, gh)
-        col_c = lax.broadcasted_iota(jnp.int32, (hd, gh), 0)
-        col_m = lax.broadcasted_iota(jnp.int32, (hd, gh), 1)
-        head_ok = (col_c // d == col_m % n_heads).astype(f32)  # (hd, gh)
-        q_e = lax.dot_general(qt, sel, (((1,), (0,)), ((), ())),
-                              preferred_element_type=f32, precision=prec) * head_ok
-        q_i8, sq = _quant_cols(q_e)  # (hd, gh) int8, (1, gh) f32
-
-        # mask/reduction matrices (iota-built, MXU-consumed)
-        hm = (lax.broadcasted_iota(jnp.int32, (gh, hd), 0) % n_heads
-              == lax.broadcasted_iota(jnp.int32, (gh, hd), 1) // d).astype(f32)
-        s2 = (lax.broadcasted_iota(jnp.int32, (g, gh), 1) // n_heads
-              == lax.broadcasted_iota(jnp.int32, (g, gh), 0)).astype(f32)
-
-        def expand(v_gh):  # (1, gh) per-(row, head) -> (g, hd) per-(row, lane)
-            return lax.dot_general(s2 * v_gh, hm, (((1,), (0,)), ((), ())),
-                                   preferred_element_type=f32, precision=prec)
-
-        # per-row valid ranges / group-diagonal mask over the (g*bk, gh) grid
-        if compact:
-            # compact-diagonal layout (PERF.md: the int8 compute-tax fix):
-            # everything after the big score dot runs on (bk, gh) — column
-            # block r holds row r's scores — cutting the per-block VPU work
-            # g-fold. Bit-identical to the wide path: off-diagonal entries
-            # are exactly the masked/zero ones, and every f32 op keeps the
-            # wide path's per-element operand order.
-            m_i32 = s2.astype(jnp.int32)  # (g, gh) group-diagonal selector
-            ends_c = jnp.zeros((1, gh), jnp.int32)
-            pad_c = jnp.zeros((1, gh), jnp.int32)
-            for r in range(g):
-                ends_c = ends_c + ends_ref[b0 + r] * m_i32[r:r + 1]
-                pad_c = pad_c + pad_ref[b0 + r] * m_i32[r:r + 1]
-            j_col = lax.broadcasted_iota(jnp.int32, (bk, gh), 0)
-            # 3D bool diagonal mask for the PV re-expansion, built from 3D
-            # iotas (a 2D->3D unit-dim reshape of an int8 vector is an
-            # unsupported Mosaic shape cast on hardware, and int8 elementwise
-            # multiplies don't legalize — select does; interpret hides both)
-            mask3 = (lax.broadcasted_iota(jnp.int32, (g, bk, gh), 0)
-                     == lax.broadcasted_iota(jnp.int32, (g, bk, gh), 2)
-                     // n_heads)
-        else:
-            ends_v = jnp.concatenate(
-                [jnp.full((bk, 1), ends_ref[b0 + r], jnp.int32) for r in range(g)], 0)
-            pad_v = jnp.concatenate(
-                [jnp.full((bk, 1), pad_ref[b0 + r], jnp.int32) for r in range(g)], 0)
-            row_i = lax.broadcasted_iota(jnp.int32, (g * bk, gh), 0)
-            col_i = lax.broadcasted_iota(jnp.int32, (g * bk, gh), 1)
-            diag = row_i // bk == col_i // n_heads
-            j_in_blk = row_i - (row_i // bk) * bk  # key offset within the block
-
-        def step(i, carry):
-            ms, ls, accs = carry  # (1, gh), (1, gh), (g, hd) f32
-            slot = lax.rem(i, 2)
-
-            @pl.when(i + 1 < n_blocks)
-            def _():
-                for cp in copies(i + 1, lax.rem(i + 1, 2)):
-                    cp.start()
-
-            for cp in copies(i, slot):
-                cp.wait()
-
-            k_flat = k_scr[slot].reshape(g * bk, hd)  # int8, layout-free merge
-            s_i32 = lax.dot_general(k_flat, q_i8, (((1,), (0,)), ((), ())),
-                                    preferred_element_type=jnp.int32)
-            if compact:
-                # fold the (g, bk, gh) block-diagonal into (bk, gh): column
-                # block r keeps plane r (others are cross-row garbage the
-                # wide path masks to -inf; the masked sum zeroes them)
-                s3i = s_i32.reshape(g, bk, gh)
-                s_c = s3i[0] * m_i32[0:1]
-                for r in range(1, g):
-                    s_c = s_c + s3i[r] * m_i32[r:r + 1]
-                # per-column key scales: sk_c[j, c] = sk[c//H, j], exact via
-                # a single-term f32 selector dot (same for the V scales)
-                sk_c = lax.dot_general(sk_scr[slot][:g], s2,
-                                       (((0,), (0,)), ((), ())),
-                                       preferred_element_type=f32, precision=prec)
-                s = s_c.astype(f32) * sk_c * sq  # same op order as wide path
-
-                k_idx = i * bk + j_col
-                valid = jnp.logical_and(k_idx < ends_c, k_idx >= pad_c)
-                s = jnp.where(valid, s, NEG_INF)
-            else:
-                # dequant: per-key K scale (3D broadcast keeps (g, bk)
-                # alignment without a relayout), then the per-column q scale
-                s3 = s_i32.astype(f32).reshape(g, bk, gh) * sk_scr[slot][:g, :, None]
-                s = s3.reshape(g * bk, gh) * sq
-
-                k_idx = i * bk + j_in_blk
-                valid = jnp.logical_and(
-                    jnp.logical_and(k_idx < ends_v, k_idx >= pad_v), diag)
-                s = jnp.where(valid, s, NEG_INF)
-
-            m_new = jnp.maximum(ms, jnp.max(s, axis=0, keepdims=True))
-            m_safe = jnp.maximum(m_new, jnp.float32(NEG_INF / 2))
-            p = jnp.exp(s - m_safe)
-            alpha = jnp.exp(ms - m_safe)
-            l_new = alpha * ls + jnp.sum(p, axis=0, keepdims=True)
-
-            # fold per-key V scales into the probs (V's key axis is about to
-            # be contracted), quantize per column, int8 PV dot
-            if compact:
-                sv_c = lax.dot_general(sv_scr[slot][:g], s2,
-                                       (((0,), (0,)), ((), ())),
-                                       preferred_element_type=f32, precision=prec)
-                p_i8c, ps = _quant_cols(p * sv_c)
-                # re-expand to block-diagonal ONLY for the int8 PV operand
-                # (int8 broadcast+mask: a quarter-width pass)
-                p_i8 = jnp.where(mask3, jnp.broadcast_to(p_i8c[None], (g, bk, gh)),
-                                 jnp.int8(0)).reshape(g * bk, gh)
-            else:
-                p_eff = (p.reshape(g, bk, gh) * sv_scr[slot][:g, :, None]).reshape(g * bk, gh)
-                p_i8, ps = _quant_cols(p_eff)
-            v_flat = v_scr[slot].reshape(g * bk, hd)
-            pv = lax.dot_general(p_i8, v_flat, (((0,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.int32)  # (gh, hd)
-            # head-select + group-sum, with the prob scale folded into the
-            # selector (applies per pv row = per column of p)
-            ctx = lax.dot_general(s2 * ps, pv.astype(f32) * hm,
-                                  (((1,), (0,)), ((), ())),
-                                  preferred_element_type=f32, precision=prec)
-            return m_new, l_new, accs * expand(alpha) + ctx
-
-        init = (jnp.full((1, gh), NEG_INF, f32), jnp.zeros((1, gh), f32),
-                jnp.zeros((g, hd), f32))
-        ms, ls, accs = lax.fori_loop(first, n_blocks, step, init)
-
-        if has_cur:
-            # current position: K quantized with the cache-write rule (same
-            # scores now as when later streamed), V full precision
-            kc = curk_ref[...].astype(f32)  # (g, hd)
-            if has_cur_s:
-                # tensor-parallel ranks hold a WIDTH shard of the current K:
-                # the full-width scale (pmaxed outside) rides in so the
-                # in-kernel quantization matches the cache write exactly
-                kc_s = curks_ref[...]
-            else:
-                kc_absmax = jnp.max(jnp.abs(kc), axis=1, keepdims=True)
-                kc_s = jnp.where(kc_absmax == 0.0, 1.0, kc_absmax) * (1.0 / 127.0)
-            kc_i8 = jnp.clip(jnp.round(kc / kc_s), -127, 127).astype(jnp.int8)
-            sc_i32 = lax.dot_general(kc_i8, q_i8, (((1,), (0,)), ((), ())),
-                                     preferred_element_type=jnp.int32)  # (g, gh)
-            cdiag = (lax.broadcasted_iota(jnp.int32, (g, gh), 0)
-                     == lax.broadcasted_iota(jnp.int32, (g, gh), 1) // n_heads)
-            s_cur = jnp.where(cdiag, sc_i32.astype(f32) * kc_s * sq, NEG_INF)
-            m_new = jnp.maximum(ms, jnp.max(s_cur, axis=0, keepdims=True))
-            p_cur = jnp.exp(s_cur - m_new)  # off-diag underflows to 0
-            alpha = jnp.exp(ms - m_new)
-            ls = alpha * ls + jnp.sum(p_cur, axis=0, keepdims=True)
-            pv_cur = lax.dot_general(p_cur, curv_ref[...].astype(f32),
-                                     (((0,), (0,)), ((), ())),
-                                     preferred_element_type=f32, precision=prec)
-            ctx_cur = lax.dot_general(s2, pv_cur * hm, (((1,), (0,)), ((), ())),
-                                      preferred_element_type=f32, precision=prec)
-            accs = accs * expand(alpha) + ctx_cur
-            ms = m_new
-        ls = jnp.where(ls == 0.0, 1.0, ls)
-        o_ref[...] = (accs / expand(ls)).astype(o_ref.dtype)[:, None, :]
-
-    pl.run_scoped(
-        body,
-        k_scr=pltpu.VMEM((2, g, bk, hd), k_hbm.dtype),
-        v_scr=pltpu.VMEM((2, g, bk, hd), v_hbm.dtype),
-        sk_scr=pltpu.VMEM((2, 8, bk), jnp.float32),
-        sv_scr=pltpu.VMEM((2, 8, bk), jnp.float32),
-        sem=pltpu.SemaphoreType.DMA((2, 4)),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("n_heads", "interpret", "compact"))
-def int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, n_heads: int,
-                          pad_lens=None, cur_k=None, cur_v=None, cur_ks=None,
-                          interpret: bool = False, compact: bool = True):
-    """Single-position attention over an int8 KV cache.
-
-    q: (B, 1, H*D); k_q/v_q: (B, Lmax, H*D) int8; k_s/v_s: (B8, Lmax) f32
-    per-key scales (:func:`make_int8_kv_cache` layout). Attends to cache keys
-    ``[pad_lens[b], ends[b])``; with ``cur_k``/``cur_v`` ((B, H*D), this
-    step's unquantized K/V) the current position is folded in after the
-    streamed blocks (megakernel semantics: the cache holds ``[0, pos)``).
-    Returns (B, 1, H*D) merged-head context.
-
-    ``cur_ks`` ((B, 1) f32): the current K's per-key quantization scale,
-    overriding the in-kernel absmax — required under tensor parallelism,
-    where each rank holds a width SHARD of cur_k but the cache write used
-    the full-width (pmaxed) scale (see :func:`quantize_rows`'s ``tp_axis``).
-
-    Batch must be <= 8 or a multiple of 8 (per-group scale DMAs need
-    8-sublane-aligned row offsets).
-    """
-    b, lq, hd = q.shape
-    l_max = k_q.shape[-2]
-    d = hd // n_heads
-    assert lq == 1 and hd % n_heads == 0
-    assert l_max % KV_BLOCK_INT8 == 0
-    assert k_q.dtype == jnp.int8 and v_q.dtype == jnp.int8
-    assert k_s.shape == (_b8(b), l_max) and v_s.shape == (_b8(b), l_max)
-    has_cur = cur_k is not None
-    if b <= 8:
-        g = b
-    else:
-        assert b % 8 == 0, f"batch {b} must be <= 8 or a multiple of 8"
-        g = 8
-
-    ends_arr = jnp.broadcast_to(jnp.asarray(ends, jnp.int32).reshape(-1), (b,))
-    pad_arr = (jnp.zeros((b,), jnp.int32) if pad_lens is None
-               else jnp.broadcast_to(jnp.asarray(pad_lens, jnp.int32).reshape(-1), (b,)))
-    # the f32 helper dots (q-expander, head-select, alpha/l expansion) are
-    # exact-math glue around the int8 MXU dots: at DEFAULT they lower to
-    # bf16 passes on hardware and the kernel drifts ~5e-3 off the quantized
-    # oracle. Their FLOPs are negligible next to the int8 dots -> HIGHEST.
-    prec = lax.Precision.HIGHEST
-
-    # per-program (hd, g) q block, carried as the (b//g, hd, g) leading-grid
-    # layout: a (hd, g) lane-blocked spec over (hd, b) violates Mosaic's
-    # last-dim block rule (divisible by 128 or full) when g < b
-    qt = jnp.swapaxes(q[:, 0, :].reshape(b // g, g, hd), 1, 2)
-    has_cur_s = cur_ks is not None
-    assert not has_cur_s or has_cur, "cur_ks without cur_k"
-    if not has_cur:  # dummy (never read; has_cur is static)
-        cur_k = jnp.zeros((b, hd), q.dtype)
-        cur_v = jnp.zeros((b, hd), q.dtype)
-    if not has_cur_s:  # dummy (never read; has_cur_s is static)
-        cur_ks = jnp.ones((b, 1), jnp.float32)
-    else:
-        cur_ks = jnp.asarray(cur_ks, jnp.float32).reshape(b, 1)
-
-    any_spec = pl.BlockSpec(memory_space=pltpu.MemorySpace.ANY)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(b // g,),
-        in_specs=[
-            pl.BlockSpec((1, hd, g), lambda i, e, p: (i, 0, 0)),
-            pl.BlockSpec((g, hd), lambda i, e, p: (i, 0)),
-            pl.BlockSpec((g, hd), lambda i, e, p: (i, 0)),
-            pl.BlockSpec((g, 1), lambda i, e, p: (i, 0)),
-            any_spec, any_spec, any_spec, any_spec,
-        ],
-        out_specs=pl.BlockSpec((g, 1, hd), lambda i, e, p: (i, 0, 0)),
-    )
-    out = pl.pallas_call(
-        functools.partial(_kernel, bk=KV_BLOCK_INT8, scale=1.0 / math.sqrt(d),
-                          n_heads=n_heads, d=d, g=g, prec=prec, has_cur=has_cur,
-                          has_cur_s=has_cur_s, compact=compact),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, 1, hd), q.dtype),
-        interpret=interpret,
-    )(ends_arr, pad_arr, qt, cur_k, cur_v, cur_ks, k_q, v_q, k_s, v_s)
-    return out
-
-
-def int8_attention_oracle(*args, **kw):
-    """Exact quantized-math oracle (see :func:`_int8_attention_oracle_impl`).
-
-    Forces HIGHEST matmul precision: on TPU the impl's plain f32 ``@`` ops
-    would otherwise lower to bf16 passes and the ORACLE itself drifts ~5e-3
-    (the CLAUDE.md fp32-parity rule) — the kernel pins its own glue dots to
-    HIGHEST for the same reason."""
-    with jax.default_matmul_precision("highest"):
-        return _int8_attention_oracle_impl(*args, **kw)
-
-
-def _int8_attention_oracle_impl(q, k_q, v_q, k_s, v_s, ends, n_heads: int,
-                                pad_lens=None, cur_k=None, cur_v=None,
-                                cur_ks=None, bias=None):
-    """Exact re-implementation of the kernel's quantized math in plain jnp
-    (same block structure, same op order — int dots are exact and the f32
-    chain mirrors the kernel's, so outputs match to f32 rounding).
-
-    ``bias``: optional (Lmax, H) f32 additive key-major decode bias (T5's
-    rel-pos table at the query position), added after dequant and at the
-    current position (index ``ends[0]`` — self-decode semantics where every
-    row shares pos)."""
-    b, _, hd = q.shape
-    d = hd // n_heads
-    l_max = k_q.shape[-2]
-    bk = KV_BLOCK_INT8
-    f32 = jnp.float32
-    scale = 1.0 / math.sqrt(d)
-    ends_arr = jnp.broadcast_to(jnp.asarray(ends, jnp.int32).reshape(-1), (b,))
-    pad_arr = (jnp.zeros((b,), jnp.int32) if pad_lens is None
-               else jnp.broadcast_to(jnp.asarray(pad_lens, jnp.int32).reshape(-1), (b,)))
-    g = b if b <= 8 else 8
-    outs = []
-    for g0 in range(0, b, g):
-        sl = slice(g0, g0 + g)
-        qt = q[sl, 0, :].T.astype(f32) * scale  # (hd, g)
-        # per-column q-expander, exactly as the kernel builds it
-        sel = (jnp.arange(g * n_heads)[None, :] // n_heads
-               == jnp.arange(g)[:, None]).astype(f32)
-        head_ok = ((jnp.arange(hd)[:, None] // d)
-                   == (jnp.arange(g * n_heads)[None, :] % n_heads)).astype(f32)
-        q_e = (qt @ sel) * head_ok
-        q_i8, sq = _quant_cols(q_e)
-
-        first = int(min(int(pad_arr[r]) // bk for r in range(g0, g0 + g)))
-        n_blocks = int(max(-(-int(ends_arr[r]) // bk) for r in range(g0, g0 + g)))
-        gh = g * n_heads
-        ms = jnp.full((1, gh), NEG_INF, f32)
-        ls = jnp.zeros((1, gh), f32)
-        accs = jnp.zeros((g, hd), f32)
-        hm = ((jnp.arange(gh)[:, None] % n_heads)
-              == (jnp.arange(hd)[None, :] // d)).astype(f32)
-        s2 = ((jnp.arange(gh)[None, :] // n_heads)
-              == (jnp.arange(g)[:, None])).astype(f32)
-        expand = lambda v: (s2 * v) @ hm
-        ends_v = jnp.concatenate([jnp.full((bk, 1), int(ends_arr[r]), jnp.int32)
-                                  for r in range(g0, g0 + g)], 0)
-        pad_v = jnp.concatenate([jnp.full((bk, 1), int(pad_arr[r]), jnp.int32)
-                                 for r in range(g0, g0 + g)], 0)
-        row_i = jnp.arange(g * bk)[:, None]
-        col_i = jnp.arange(gh)[None, :]
-        diag = row_i // bk == col_i // n_heads
-        for i in range(first, n_blocks):
-            k_flat = k_q[sl, i * bk:(i + 1) * bk, :].reshape(g * bk, hd)
-            s_i32 = lax.dot_general(k_flat, q_i8, (((1,), (0,)), ((), ())),
-                                    preferred_element_type=jnp.int32)
-            sk_blk = k_s[g0:g0 + g, i * bk:(i + 1) * bk]
-            s = (s_i32.astype(f32).reshape(g, bk, gh)
-                 * sk_blk[:, :, None]).reshape(g * bk, gh) * sq
-            if bias is not None:
-                blk_b = bias[i * bk:(i + 1) * bk, :].astype(f32)  # (bk, H)
-                s = s + jnp.tile(jnp.tile(blk_b, (g, 1)), (1, g))
-            k_idx = i * bk + (row_i - (row_i // bk) * bk)
-            valid = jnp.logical_and(jnp.logical_and(k_idx < ends_v, k_idx >= pad_v), diag)
-            s = jnp.where(valid, s, NEG_INF)
-            m_new = jnp.maximum(ms, jnp.max(s, axis=0, keepdims=True))
-            m_safe = jnp.maximum(m_new, jnp.float32(NEG_INF / 2))
-            p = jnp.exp(s - m_safe)
-            alpha = jnp.exp(ms - m_safe)
-            ls = alpha * ls + jnp.sum(p, axis=0, keepdims=True)
-            sv_blk = v_s[g0:g0 + g, i * bk:(i + 1) * bk]
-            p_eff = (p.reshape(g, bk, gh) * sv_blk[:, :, None]).reshape(g * bk, gh)
-            p_i8, ps = _quant_cols(p_eff)
-            v_flat = v_q[sl, i * bk:(i + 1) * bk, :].reshape(g * bk, hd)
-            pv = lax.dot_general(p_i8, v_flat, (((0,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-            ctx = (s2 * ps) @ (pv.astype(f32) * hm)
-            accs = accs * expand(alpha) + ctx
-            ms = m_new
-        if cur_k is not None:
-            kc = cur_k[sl].astype(f32)
-            if cur_ks is not None:  # full-width scale supplied (tp shards)
-                kc_s = jnp.asarray(cur_ks, f32).reshape(b, 1)[sl]
-            else:
-                kc_absmax = jnp.max(jnp.abs(kc), axis=1, keepdims=True)
-                kc_s = jnp.where(kc_absmax == 0.0, 1.0, kc_absmax) * (1.0 / 127.0)
-            kc_i8 = jnp.clip(jnp.round(kc / kc_s), -127, 127).astype(jnp.int8)
-            sc_i32 = lax.dot_general(kc_i8, q_i8, (((1,), (0,)), ((), ())),
-                                     preferred_element_type=jnp.int32)
-            cdiag = (jnp.arange(g)[:, None] == jnp.arange(gh)[None, :] // n_heads)
-            s_cur = sc_i32.astype(f32) * kc_s * sq
-            if bias is not None:
-                s_cur = s_cur + jnp.tile(bias[int(ends_arr[0]):int(ends_arr[0]) + 1, :].astype(f32), (1, g))
-            s_cur = jnp.where(cdiag, s_cur, NEG_INF)
-            m_new = jnp.maximum(ms, jnp.max(s_cur, axis=0, keepdims=True))
-            p_cur = jnp.exp(s_cur - m_new)
-            alpha = jnp.exp(ms - m_new)
-            ls = alpha * ls + jnp.sum(p_cur, axis=0, keepdims=True)
-            pv_cur = lax.dot_general(p_cur, cur_v[sl].astype(f32),
-                                     (((0,), (0,)), ((), ())),
-                                     preferred_element_type=f32)
-            accs = accs * expand(alpha) + s2 @ (pv_cur * hm)
-        ls = jnp.where(ls == 0.0, 1.0, ls)
-        outs.append((accs / expand(ls)).astype(q.dtype))
-    return jnp.concatenate(outs, 0)[:, None, :]
+def quantize_kv(caches):
+    """bf16/f32 ``{"k", "v", ...}`` caches (one dict, or a list of per-layer
+    dicts) -> int8 caches with ``"ks"``/``"vs"`` scales; other keys (a cross
+    cache's ``"len"``) pass through."""
+    if isinstance(caches, (list, tuple)):
+        return [quantize_kv(c) for c in caches]
+    k_q, k_s = quantize_rows(caches["k"])
+    v_q, v_s = quantize_rows(caches["v"])
+    return dict(caches) | {"k": k_q, "v": v_q, "ks": k_s[..., 0], "vs": v_s[..., 0]}

@@ -1,6 +1,6 @@
 """Elementary functional layers over param pytrees.
 
-Conventions (JAX/TPU-native, converters transpose from torch):
+Conventions (JAX-native, converters transpose from torch):
 - Linear: ``{"w": (in, out), "b": (out,)}``; ``y = x @ w + b``.
 - LayerNorm: ``{"scale": (d,), "bias": (d,)}``; eps inside sqrt like torch.
 - Conv2d: HWIO kernel, NHWC data. Conv1d: (k, in, out) kernel, NLC data.
@@ -19,12 +19,10 @@ import jax.numpy as jnp
 from jax import lax
 
 
-# bf16 serving substitutes tanh-GELU for exact erf-GELU: XLA's erf is ~0.7
-# ms/layer of serialized VPU work at ViT-B/16 batch 128 (measured v5e: exact
-# 2.18 ms vs tanh 1.50 vs a no-transcendental floor of 1.40 per MLP), and
-# |tanh-GELU - erf-GELU| peaks at ~5e-4 near |x|=2 — an order below bf16's own
-# rounding. Set False for bf16 runs that must match reference erf-GELU
-# bit patterns; fp32 (the parity path) always keeps exact erf.
+# bf16 serving substitutes tanh-GELU for exact erf-GELU: |tanh-GELU -
+# erf-GELU| peaks at ~5e-4 near |x|=2 — an order below bf16's own rounding.
+# Set False for bf16 runs that must match reference erf-GELU bit patterns;
+# fp32 (the parity path) always keeps exact erf.
 FAST_GELU_BF16: bool = True
 
 
@@ -44,39 +42,9 @@ ACT_FNS = {
 }
 
 
-def _erf_poly(x):
-    """erf via Abramowitz & Stegun 7.1.26 (|err| <= 1.5e-7), f32 math.
-
-    Mosaic has NO erf/erfc lowering (jax.nn.gelu(approximate=False) lowers
-    through lax.erfc and fails to compile inside any pallas_call on real
-    hardware — interpret mode hides this), so kernels that need exact-GELU
-    numerics use this polynomial instead."""
-    a1, a2, a3, a4, a5 = 0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429
-    ax = jnp.abs(x)
-    t = 1.0 / (1.0 + 0.3275911 * ax)
-    y = 1.0 - ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t * jnp.exp(-ax * ax)
-    return jnp.sign(x) * y
-
-
-def _gelu_kernel_safe(x):
-    """GELU for code that runs INSIDE pallas kernels: identical to
-    :func:`_gelu_exact` on the bf16 serving path (tanh GELU), polynomial-erf
-    GELU (~1e-7 abs err) where the XLA path would use lax.erfc."""
-    if FAST_GELU_BF16 and x.dtype == jnp.bfloat16:
-        return jax.nn.gelu(x, approximate=True)
-    x32 = x.astype(jnp.float32)
-    out = 0.5 * x32 * (1.0 + _erf_poly(x32 * (1.0 / math.sqrt(2.0))))
-    return out.astype(x.dtype)
-
-
-# activation table for pallas-kernel bodies (ops/decode_step.py): only
-# "gelu" differs — everything else lowers fine in Mosaic
-KERNEL_ACT_FNS = dict(ACT_FNS, gelu=_gelu_kernel_safe)
-
-
 def dot_precision(x) -> lax.Precision:
-    """HIGHEST for fp32 inputs (TPU would otherwise run bf16 MXU passes and
-    miss the ≤1e-3 parity target); DEFAULT for bf16 — the fast path."""
+    """HIGHEST for fp32 inputs (a GPU would otherwise run fp32 matmuls in
+    TF32 and miss the ≤1e-3 parity target); DEFAULT for bf16 — the fast path."""
     return lax.Precision.HIGHEST if x.dtype == jnp.float32 else lax.Precision.DEFAULT
 
 
@@ -90,13 +58,11 @@ def linear_init(key, in_dim: int, out_dim: int, bias: bool = True) -> dict:
     return p
 
 
-# w8a8 serving for encoder/prefill matmuls (opt-in): with int8-quantized
-# weights AND this flag, linear() symmetric-quantizes activations per row
-# and runs int8 x int8 -> int32 MXU dots — the v5e MXU's int8 path has 2x
-# the bf16 peak (394 vs 197 TOPS), and compute-bound encoders (ViT at its
-# bf16 flop floor, PERF.md #27) can only move by switching peaks. Attention
-# scores/softmax/norms stay bf16/fp32. Env A8_LINEAR=0/1 overrides at trace
-# time for A/B sweeps. Engaged via model.quantize_int8() + this flag.
+# w8a8 serving (opt-in): with int8-quantized weights AND this flag, linear()
+# symmetric-quantizes activations per row and runs int8 x int8 -> int32 dots
+# (int8 tensor-core peak is 2x bf16 on Hopper). Attention scores/softmax/norms
+# stay bf16/fp32. Env A8_LINEAR=0/1 overrides at trace time for A/B sweeps.
+# Engaged via model.quantize_int8() + this flag.
 USE_A8_LINEAR = False
 
 
@@ -127,7 +93,7 @@ def linear(p: dict, x: jnp.ndarray) -> jnp.ndarray:
     # compute even for fp32 inputs; fp32 params keep full precision)
     w = p["w"]
     if isinstance(w, dict):  # weight-only int8 (utils.params.quantize_tree_int8)
-        if use_a8_linear():  # w8a8: int8 MXU dots, bf16 result like the cast path
+        if use_a8_linear():  # w8a8: int8 dots, bf16 result like the cast path
             y = _a8_matmul(x, w).astype(jnp.bfloat16)
             if "b" in p:
                 y = y + p["b"].astype(y.dtype)

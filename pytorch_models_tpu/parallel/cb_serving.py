@@ -6,8 +6,8 @@ head sharding over a ``("tp",)`` mesh (parallel/serving.py). The pool's KV
 caches shard on the head width — ``(L, B, Lmax, H*D/tp)`` per rank — and the
 two scheduling programs (admit, decode-steps) run as shard_maps, with the
 base class's host scheduler (admission order, slot harvest, epoch resets)
-reused verbatim through its sharding hooks. Decode runs the per-op tp path
-(the megakernel has no in-kernel psum — same as parallel/serving.py).
+reused verbatim through its sharding hooks. Decode runs the per-op path on
+each rank's heads, all-reducing after the out/fc2 projections.
 
 Per-request outputs stay token-identical to the single-device
 ``DecoderGenerator.generate_tokens`` (tests/parallel/test_cb_serving.py).
@@ -38,7 +38,6 @@ from ..models.text.continuous import (
 )
 from ..models.text.t5_continuous import T5ContinuousBatchingGenerator
 from ..models.text.generator import PROMPT_BUCKET
-from ..ops import attention as _attn
 from .serving import decoder_lm_serving_pspecs
 
 # int8 pool caches under TP: the int8 K/V shard on the head width like the
@@ -93,7 +92,7 @@ class TPContinuousBatchingGenerator(ContinuousBatchingGenerator):
                   n_steps, eos_id):
             def local(p, buf, pads, lims, ends, caches, pos, done, n_steps, eos):
                 return _cb_steps_body(p, cfg_local, buf, pads, lims, ends, caches,
-                                      pos, False, done, n_steps, eos)
+                                      pos, done, n_steps, eos)
 
             cspec = _i8_spec(cache_spec, caches)
             fn = jax.shard_map(
@@ -114,8 +113,7 @@ class TPContinuousBatchingGenerator(ContinuousBatchingGenerator):
             def local(p, buf, pads, lims, ends, caches, pos, done, n_steps, eos,
                       temp, keys, t0s, tps):
                 return _cb_steps_body(p, cfg_local, buf, pads, lims, ends, caches,
-                                      pos, False, done, n_steps, eos,
-                                      topk=topk, top_p=top_p, temperature=temp,
+                                      pos, done, n_steps, eos, topk=topk, top_p=top_p, temperature=temp,
                                       keys=keys, t0s=t0s, tps=tps)
 
             cspec = _i8_spec(cache_spec, caches)
@@ -173,10 +171,10 @@ class TPContinuousBatchingGenerator(ContinuousBatchingGenerator):
                       row, pos, n, k, prefix_chunk, prefix_caches,
                       suffix_chunk, max_new)
 
-        # ---- int8 pool admission (per-op int8 decode path): the bf16
-        # 1-row scratch prefills per rank exactly like the bf16 pool's
-        # admission, and the commit quantizes per rank with the tp-pmaxed
-        # full-width scale (token-identical to the single-device int8 pool)
+        # ---- int8 pool admission: the bf16 1-row scratch prefills per rank
+        # exactly like the bf16 pool's admission, and the commit quantizes
+        # per rank with the tp-pmaxed full-width scale (token-identical to
+        # the single-device int8 pool)
         def i8_paste(buf, scratch, row, pad_len, kk, prefix_chunk, prefix_caches):
             fn = jax.shard_map(
                 _cb_i8_paste_body, mesh=mesh,
@@ -241,9 +239,8 @@ class TPContinuousBatchingGenerator(ContinuousBatchingGenerator):
         caches = tfm.make_kv_cache(cfg.n_layers, (b,), cfg.layer.n_heads,
                                    cfg.max_seq_len, cfg.layer.head_dim,
                                    dtype=params["token_embs"].dtype, stacked=True)
-        caches = {k: jax.device_put(v, NamedSharding(self._mesh, self._cache_spec[k]))
-                  for k, v in caches.items()}
-        return False, None, None, None, caches  # fused off: per-op tp path
+        return {k: jax.device_put(v, NamedSharding(self._mesh, self._cache_spec[k]))
+                for k, v in caches.items()}
 
     def _admit(self, params, cfg, *args):
         return self._admit_jit(params, *args)
@@ -261,9 +258,8 @@ class TPContinuousBatchingGenerator(ContinuousBatchingGenerator):
         return self._admit_prefix_jit(params, *args)
 
     def _steps(self, params, cfg, buf, pad_lens, limits, ends, caches, pos,
-               fused, done, n_steps, eos_id, packed=None, head=None, head_v=None,
-               topk=1, top_p=None, temperature=None, keys=None, t0s=None,
-               tps=None):
+               done, n_steps, eos_id, topk=1, top_p=None, temperature=None,
+               keys=None, t0s=None, tps=None):
         if topk == 1 and top_p is None:
             return self._steps_jit(params, buf, pad_lens, limits, ends, caches,
                                    pos, done, n_steps, eos_id)
@@ -271,17 +267,8 @@ class TPContinuousBatchingGenerator(ContinuousBatchingGenerator):
                                       pos, done, n_steps, eos_id, topk, top_p,
                                       temperature, keys, t0s, tps)
 
-    # ---- int8 pool (per-op int8 decode path; see transformer.py
-    # _int8_self_decode_apply): per-rank kernel over width-sharded int8
-    # caches + replicated full-width scale planes
-    def _use_int8_pool(self, cfg, b: int, fused: bool) -> bool:
-        # per-rank width must stay lane-aligned: the int8 kernel's cache DMAs
-        # copy full (bk, hd/tp) rows and Mosaic rejects minor dims < 128 on
-        # real hardware (CLAUDE.md DMA alignment; interpret mode hides it)
-        tp = dict(self._mesh.shape)["tp"]
-        width = cfg.layer.n_heads * cfg.layer.head_dim
-        return _attn.use_int8_kv(b) and (width // tp) % 128 == 0
-
+    # ---- int8 pool: width-sharded int8 caches + replicated full-width
+    # scales, dequantized on read per rank (transformer.py _read_kv)
     def _i8_paste(self, *args):
         return self._i8_paste_jit(*args)
 
@@ -355,7 +342,7 @@ class TPWhisperContinuousBatchingGenerator(WhisperContinuousBatchingGenerator):
                   done, n_steps, eot_id):
             def local(p, buf, pads, lims, ends, caches, cross, pos, done, n, eot):
                 return _wcb_steps_body(p, cfg_local, buf, pads, lims, ends, caches,
-                                       cross, pos, False, done, n, eot)
+                                       cross, pos, done, n, eot)
 
             cspec, xspec = _i8_spec(cache_spec, caches), _i8_spec(cross_spec, cross)
             fn = jax.shard_map(
@@ -390,8 +377,7 @@ class TPWhisperContinuousBatchingGenerator(WhisperContinuousBatchingGenerator):
             def local(p, buf, pads, lims, ends, caches, cross, pos, done, n, eot,
                       temp, keys, t0s, tps):
                 return _wcb_steps_body(p, cfg_local, buf, pads, lims, ends, caches,
-                                       cross, pos, False, done, n, eot,
-                                       topk=topk, top_p=top_p, temperature=temp,
+                                       cross, pos, done, n, eot, topk=topk, top_p=top_p, temperature=temp,
                                        keys=keys, t0s=t0s, tps=tps)
 
             cspec, xspec = _i8_spec(cache_spec, caches), _i8_spec(cross_spec, cross)
@@ -429,28 +415,17 @@ class TPWhisperContinuousBatchingGenerator(WhisperContinuousBatchingGenerator):
         }
         cross = {k: jax.device_put(v, NamedSharding(self._mesh, self._cross_spec[k]))
                  for k, v in cross.items()}
-        return False, None, None, None, caches, cross  # fused off: per-op tp path
+        return caches, cross
 
     def _admit(self, params, cfg, *args):
         return self._admit_jit(params, *args)
-
-    def _int8_modes(self, cfg, b: int, fused: bool) -> tuple[bool, bool]:
-        """TP int8 pools ride the per-op int8 path (transformer.py
-        _int8_self_decode_apply / _int8_cross_decode_apply): int8 K/V shard
-        on the head width, the full-width scale planes replicate. Per-rank
-        width must stay lane-aligned (Mosaic full-row DMAs; CLAUDE.md)."""
-        tp = dict(self._mesh.shape)["tp"]
-        lc = cfg.dec_layer
-        if (lc.n_heads * lc.head_dim // tp) % 128:
-            return False, False
-        return _attn.use_int8_kv(b), _attn.use_int8_kv_cross(b)
 
     def _admit_i8(self, params, cfg, *args):
         return self._admit_i8_jit(params, *args)
 
     def _steps(self, params, cfg, buf, pad_lens, limits, ends, caches, cross, pos,
-               fused, done, n_steps, eot_id, packed=None, head=None, head_v=None,
-               topk=1, top_p=None, temperature=None, keys=None, t0s=None, tps=None):
+               done, n_steps, eot_id, topk=1, top_p=None, temperature=None, keys=None,
+               t0s=None, tps=None):
         if topk == 1 and top_p is None:
             return self._steps_jit(params, buf, pad_lens, limits, ends, caches, cross,
                                    pos, done, n_steps, eot_id)
@@ -518,14 +493,14 @@ class TPT5ContinuousBatchingGenerator(T5ContinuousBatchingGenerator):
                   done, n_steps, eos_id, bias_tab):
             def local(p, buf, pads, lims, ends, caches, cross, pos, done, n, eos, bias):
                 return _t5cb_steps_body(p, cfg_local, buf, pads, lims, ends, caches,
-                                        cross, pos, False, done, n, eos, bias)
+                                        cross, pos, done, n, eos, bias)
 
-            xspec = _i8_spec(cross_spec, cross)
+            cspec, xspec = _i8_spec(cache_spec, caches), _i8_spec(cross_spec, cross)
             fn = jax.shard_map(
                 local, mesh=mesh,
-                in_specs=(pspecs, P(), P(), P(), P(), cache_spec, xspec,
+                in_specs=(pspecs, P(), P(), P(), P(), cspec, xspec,
                           P(), P(), P(), P(), bias_spec),
-                out_specs=(P(), P(), cache_spec, P(), P()),
+                out_specs=(P(), P(), cspec, P(), P()),
                 check_vma=False)
             return fn(params, buf, pad_lens, limits, ends, caches, cross, pos,
                       done, n_steps, eos_id, bias_tab)
@@ -553,16 +528,15 @@ class TPT5ContinuousBatchingGenerator(T5ContinuousBatchingGenerator):
             def local(p, buf, pads, lims, ends, caches, cross, pos, done, n, eos,
                       bias, temp, keys, t0s, tps):
                 return _t5cb_steps_body(p, cfg_local, buf, pads, lims, ends, caches,
-                                        cross, pos, False, done, n, eos, bias,
-                                        topk=topk, top_p=top_p, temperature=temp,
+                                        cross, pos, done, n, eos, bias, topk=topk, top_p=top_p, temperature=temp,
                                         keys=keys, t0s=t0s, tps=tps)
 
-            xspec = _i8_spec(cross_spec, cross)
+            cspec, xspec = _i8_spec(cache_spec, caches), _i8_spec(cross_spec, cross)
             fn = jax.shard_map(
                 local, mesh=mesh,
-                in_specs=(pspecs, P(), P(), P(), P(), cache_spec, xspec,
+                in_specs=(pspecs, P(), P(), P(), P(), cspec, xspec,
                           P(), P(), P(), P(), bias_spec, P(), P(), P(), P()),
-                out_specs=(P(), P(), cache_spec, P(), P()),
+                out_specs=(P(), P(), cspec, P(), P()),
                 check_vma=False)
             return fn(params, buf, pad_lens, limits, ends, caches, cross, pos,
                       done, n_steps, eos_id, bias_tab, temperature, keys, t0s, tps)
@@ -602,31 +576,17 @@ class TPT5ContinuousBatchingGenerator(T5ContinuousBatchingGenerator):
         }
         cross = {k: jax.device_put(v, NamedSharding(self._mesh, self._cross_spec[k]))
                  for k, v in cross.items()}
-        return False, None, None, None, caches, cross, bias_tab
+        return caches, cross, bias_tab
 
     def _admit(self, params, cfg, *args):
         return self._admit_jit(params, *args)
-
-    def _int8_modes(self, params, cfg, b: int, l_max: int) -> tuple[bool, bool]:
-        """TP T5 pools: int8 CROSS rides the per-op int8 path (write-once
-        encoder caches; T5-legal — the rel-pos bias is self-only). int8 SELF
-        stays bf16: the per-op kernel (ops/int8_kv.py) has no bias input, so
-        the decode rel-pos bias can't ride it (the group-tiled-bias trick is
-        megakernel-only, and GSPMD can't partition a pallas_call). Per-rank
-        width must stay lane-aligned (Mosaic full-row DMAs; CLAUDE.md)."""
-        tp = dict(self._mesh.shape)["tp"]
-        lc = cfg.layer
-        if (lc.n_heads * lc.head_dim // tp) % 128:
-            return False, False
-        return False, _attn.use_int8_kv_cross(b)
 
     def _admit_i8(self, params, cfg, *args):
         return self._admit_i8_jit(params, *args)
 
     def _steps(self, params, cfg, buf, pad_lens, limits, ends, caches, cross, pos,
-               fused, done, n_steps, eos_id, bias_tab, packed=None, head=None,
-               head_v=None, topk=1, top_p=None, temperature=None, keys=None, t0s=None,
-               tps=None):
+               done, n_steps, eos_id, bias_tab, topk=1, top_p=None, temperature=None,
+               keys=None, t0s=None, tps=None):
         if topk == 1 and top_p is None:
             return self._steps_jit(params, buf, pad_lens, limits, ends, caches, cross,
                                    pos, done, n_steps, eos_id, bias_tab)

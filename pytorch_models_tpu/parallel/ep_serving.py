@@ -134,10 +134,8 @@ def _moe_mlp_ep(p, x, *, cfg: MoEDecoderConfig):
 
 def _forward(params, cfg: MoEDecoderConfig, tokens, pos_ids, caches, pos, pad_lens, moe_mlp):
     """(b, S) token chunk at cache slots [pos, pos+S) -> (logits, caches)."""
-    from ..ops.gather import embed_rows
-
-    x = embed_rows(params["token_embs"], tokens)
-    x = x + embed_rows(params["pos_embs"], pos_ids).astype(x.dtype)
+    x = jnp.take(params["token_embs"], tokens, axis=0)
+    x = x + jnp.take(params["pos_embs"], pos_ids, axis=0).astype(x.dtype)
     lc = cfg.layer
     new_caches = []
     for i in range(cfg.n_layers):

@@ -64,8 +64,6 @@ def _pp_generate_body(params, prompt_buf, pad_lens, limit, eos_id, *, cfg, n_sta
     """Greedy batched generation with stage-sharded layers; runs per-rank
     inside shard_map over ("pp",). Mirrors generator._generate_batch_body."""
     from ..models.text._decoder_lm import _final_hidden
-    from ..ops.gather import embed_rows
-
     b, p_len = prompt_buf.shape
     lc = cfg.layer
     rank = lax.axis_index("pp")
@@ -96,8 +94,8 @@ def _pp_generate_body(params, prompt_buf, pad_lens, limit, eos_id, *, cfg, n_sta
                           precision=dot_precision(x))
 
     # prefill
-    x = embed_rows(params["token_embs"], prompt_buf)
-    x = x + embed_rows(params["pos_embs"], pos_ids).astype(x.dtype)
+    x = jnp.take(params["token_embs"], prompt_buf, axis=0)
+    x = x + jnp.take(params["pos_embs"], pos_ids, axis=0).astype(x.dtype)
     x, caches = run_stages(x, caches, 0, pad_lens)
     logits = head(x)
 
@@ -116,8 +114,8 @@ def _pp_generate_body(params, prompt_buf, pad_lens, limit, eos_id, *, cfg, n_sta
         buf, pos, caches, done = s
         tok = lax.dynamic_slice(buf, (0, pos - 1), (b, 1))
         p_ids = (pos - 1 - pad_lens)[:, None]
-        x = embed_rows(params["token_embs"], tok)
-        x = x + embed_rows(params["pos_embs"], p_ids).astype(x.dtype)
+        x = jnp.take(params["token_embs"], tok, axis=0)
+        x = x + jnp.take(params["pos_embs"], p_ids, axis=0).astype(x.dtype)
         x, caches = run_stages(x, caches, pos - 1, pad_lens)
         nxt = jnp.argmax(head(x)[:, 0], axis=-1).astype(jnp.int32)
         nxt = jnp.where(done, jnp.int32(eos_id), nxt)

@@ -1,7 +1,7 @@
 """Tensor + data-parallel SERVING: sharded KV-cached batched generation.
 
 The reference has no distributed layer at all (SURVEY.md §2.7 N3); this is
-the TPU-native serving story to go with parallel/train.py's training story.
+the serving story to go with parallel/train.py's training story.
 A decoder LM (GPT/GPT-2 family) generates over a ("dp", "tp") mesh:
 
 - dp: batch rows split across ranks — embarrassingly parallel.

@@ -74,8 +74,6 @@ def _tp_pp_generate_body(params, prompt_buf, pad_lens, limit, eos_id, *,
     head-sharded (``cfg`` here is the tp-LOCAL config: local_heads set,
     tp_axis="tp" triggers the per-layer psums inside decoder_apply)."""
     from ..models.text._decoder_lm import _final_hidden
-    from ..ops.gather import embed_rows
-
     b, p_len = prompt_buf.shape
     lc = cfg.layer  # tp-local layer config
     rank = lax.axis_index("pp")
@@ -102,8 +100,8 @@ def _tp_pp_generate_body(params, prompt_buf, pad_lens, limit, eos_id, *,
         return jnp.matmul(x, params["token_embs"].astype(x.dtype).T,
                           precision=dot_precision(x))
 
-    x = embed_rows(params["token_embs"], prompt_buf)
-    x = x + embed_rows(params["pos_embs"], pos_ids).astype(x.dtype)
+    x = jnp.take(params["token_embs"], prompt_buf, axis=0)
+    x = x + jnp.take(params["pos_embs"], pos_ids, axis=0).astype(x.dtype)
     x, caches = run_stages(x, caches, 0, pad_lens)
     logits = head(x)
 
@@ -122,8 +120,8 @@ def _tp_pp_generate_body(params, prompt_buf, pad_lens, limit, eos_id, *,
         buf, pos, caches, done = s
         tok = lax.dynamic_slice(buf, (0, pos - 1), (b, 1))
         p_ids = (pos - 1 - pad_lens)[:, None]
-        x = embed_rows(params["token_embs"], tok)
-        x = x + embed_rows(params["pos_embs"], p_ids).astype(x.dtype)
+        x = jnp.take(params["token_embs"], tok, axis=0)
+        x = x + jnp.take(params["pos_embs"], p_ids, axis=0).astype(x.dtype)
         x, caches = run_stages(x, caches, pos - 1, pad_lens)
         nxt = jnp.argmax(head(x)[:, 0], axis=-1).astype(jnp.int32)
         nxt = jnp.where(done, jnp.int32(eos_id), nxt)

@@ -1,7 +1,7 @@
 """Multi-parallel training step demo: dp + pp + tp + sp + ep on one mesh.
 
 The reference is inference-only with no distributed layer; this module is the
-TPU-native scaling story (SURVEY.md §2.7 N3) exercised by the driver's
+scaling story (SURVEY.md §2.7 N3) exercised by ``__graft_entry__.py``'s
 ``dryrun_multichip``: a tiny MoE transformer LM trained with cross-entropy,
 jitted over a ("dp", "pp", "tp") mesh with
 

@@ -10,10 +10,9 @@ eliminating the reference's O(L²)-per-token full re-forward decode loops
 (reference text/generator.py:23-24, text/t5.py:220-223). Caches are stored
 **merged-head** — ``(B, L_max, H*D)`` per layer, the exact shape the K/V
 projections produce — so the per-step write is one ``dynamic_update_slice``
-with no head split, and the minor dim (H*D, always a multiple of 128) avoids
-the 2x HBM lane-padding a (B, H, L, 64) layout incurs under TPU T(8,128)
-tiling. Single-position decode reads go through the Pallas prefix-streaming
-kernel (ops/decode_attention.py); the einsum path splits heads on read.
+with no head split. Single-position bf16 decode reads on the GPU go through
+the Triton decode kernel (ops/decode_attention.py), which reads only each
+row's valid prefix in place; the einsum path splits heads on read.
 """
 
 from __future__ import annotations
@@ -114,10 +113,10 @@ def mha_project_kv(p: dict, cfg: LayerConfig, kv: jnp.ndarray, valid_lens=None) 
     """Project ``kv`` (..., L, d) into a cross-attention cache.
 
     Returns ``{"k", "v", "len"}`` with merged-head (..., Lp, H*D) tensors,
-    zero-padded to a ``KV_BLOCK`` multiple so the Pallas decode kernel can
-    stream them, and ``len`` (..., ) the per-row count of valid memory
-    positions (``valid_lens`` or the full L). Padded/invalid slots are masked
-    by every read path.
+    zero-padded to :func:`padded_cache_len` so the decode kernel can stream
+    them in whole blocks, and ``len`` (..., ) the per-row count of valid
+    memory positions (``valid_lens`` or the full L). Padded/invalid slots are
+    masked by every read path.
     """
     length = kv.shape[-2]
     pad = padded_cache_len(length) - length
@@ -131,93 +130,14 @@ def mha_project_kv(p: dict, cfg: LayerConfig, kv: jnp.ndarray, valid_lens=None) 
     return {"k": linear(p["k"], kv_p), "v": linear(p["v"], kv_p), "len": lens}
 
 
-def _decode_kernel_bias(attn_bias, l_max: int, n_heads: int):
-    """Convert a single-position additive bias to the decode kernel's key-major
-    layout: (H, 1, L) / (B, H, 1, L) -> (1 | B, L, H). Returns
-    ``(kernel_bias, convertible)``; shapes the kernel can't serve (e.g. a
-    multi-query bias) report ``convertible=False`` and stay on the einsum path.
-    """
-    if attn_bias is None:
-        return None, True
-    if attn_bias.ndim == 3 and attn_bias.shape == (n_heads, 1, l_max):
-        return jnp.moveaxis(attn_bias, 0, -1), True
-    if attn_bias.ndim == 4 and attn_bias.shape[1:] == (n_heads, 1, l_max):
-        return jnp.moveaxis(attn_bias, 1, -1)[:, 0], True
-    return None, False
+def _read_kv(cur: dict, dtype):
+    """Full-precision K/V of one layer's cache view: int8 caches
+    (ops/int8_kv.py) dequantize on read, others cast to the compute dtype."""
+    if "ks" in cur:
+        from .ops.int8_kv import dequantize
 
-
-def _int8_self_decode_apply(p, cfg, k, v, q, cache, cache_pos, cache_layer,
-                            pad_lens):
-    """Single-position self-attention over an int8 KV cache — the per-op
-    (non-megakernel) decode path used by tensor-parallel serving.
-
-    Megakernel semantics (ops/decode_step.py ``kv_scales=``): the cache holds
-    quantized positions ``[0, pos)``; this step's K/V ride into the attention
-    kernel unquantized (K scored with the cache-write rule so a key scores
-    identically now and when later streamed) and are written back quantized
-    AFTER attention. Under tensor parallelism each rank holds a width shard:
-    quantization scales pmax over ``cfg.tp_axis`` so every rank uses the
-    FULL-width scale and stays bit-identical to a single device
-    (ops/int8_kv.py ``quantize_rows``/``cur_ks``).
-    """
-    from .ops.int8_kv import _b8, int8_decode_attention, quantize_rows
-
-    assert q.shape[-2] == 1, "int8 KV caches serve single-position decode only"
-    b = q.shape[0]
-    k_new = linear(p["k"], k)  # (B, 1, H*D) merged, matches the cache
-    v_new = linear(p["v"], v)
-    q_m = linear(p["q"], q)
-    kq, ks = quantize_rows(k_new, tp_axis=cfg.tp_axis)  # int8 + (B, 1, 1) f32
-    vq, vs = quantize_rows(v_new, tp_axis=cfg.tp_axis)
-    if cache_layer is not None:  # leaves are layer-stacked (L, B, Lmax|B8, ·)
-        ck = lax.dynamic_index_in_dim(cache["k"], cache_layer, 0, keepdims=False)
-        cv = lax.dynamic_index_in_dim(cache["v"], cache_layer, 0, keepdims=False)
-        cks = lax.dynamic_index_in_dim(cache["ks"], cache_layer, 0, keepdims=False)
-        cvs = lax.dynamic_index_in_dim(cache["vs"], cache_layer, 0, keepdims=False)
-    else:
-        ck, cv, cks, cvs = cache["k"], cache["v"], cache["ks"], cache["vs"]
-    out = int8_decode_attention(q_m, ck, cv, cks, cvs, cache_pos, cfg.n_heads,
-                                pad_lens=pad_lens, cur_k=k_new[:, 0, :],
-                                cur_v=v_new[:, 0, :], cur_ks=ks[:, 0, :])
-
-    pad = _b8(b) - b
-
-    def col(s):  # (B, 1, 1) scale -> (B8, 1) plane column
-        c = s.reshape(b, 1)
-        return jnp.pad(c, ((0, pad), (0, 0)), constant_values=1.0) if pad else c
-
-    if cache_layer is not None:
-        new_cache = dict(cache) | {
-            "k": lax.dynamic_update_slice(cache["k"], kq[None],
-                                          (cache_layer, 0, cache_pos, 0)),
-            "v": lax.dynamic_update_slice(cache["v"], vq[None],
-                                          (cache_layer, 0, cache_pos, 0)),
-            "ks": lax.dynamic_update_slice(cache["ks"], col(ks)[None],
-                                           (cache_layer, 0, cache_pos)),
-            "vs": lax.dynamic_update_slice(cache["vs"], col(vs)[None],
-                                           (cache_layer, 0, cache_pos)),
-        }
-    else:
-        new_cache = dict(cache) | {
-            "k": lax.dynamic_update_slice(cache["k"], kq, (0, cache_pos, 0)),
-            "v": lax.dynamic_update_slice(cache["v"], vq, (0, cache_pos, 0)),
-            "ks": lax.dynamic_update_slice(cache["ks"], col(ks), (0, cache_pos)),
-            "vs": lax.dynamic_update_slice(cache["vs"], col(vs), (0, cache_pos)),
-        }
-    return reduce_linear(p["o"], out, cfg.tp_axis), new_cache
-
-
-def _int8_cross_decode_apply(p, cfg, q, cache):
-    """Single-position cross-attention over write-once int8 encoder caches
-    (quantized at admission/encode time); ``len`` masks per-row valid memory
-    (all-empty rows return zeros — unadmitted pool slots)."""
-    from .ops.int8_kv import int8_decode_attention
-
-    assert q.shape[-2] == 1, "int8 KV caches serve single-position decode only"
-    q_m = linear(p["q"], q)
-    out = int8_decode_attention(q_m, cache["k"], cache["v"], cache["ks"],
-                                cache["vs"], cache["len"], cfg.n_heads)
-    return reduce_linear(p["o"], out, cfg.tp_axis)
+        return dequantize(cur["k"], cur["ks"], dtype), dequantize(cur["v"], cur["vs"], dtype)
+    return cur["k"].astype(dtype), cur["v"].astype(dtype)
 
 
 def mha_apply(
@@ -242,92 +162,69 @@ def mha_apply(
     ``cache`` but no ``cache_pos`` (cross-attention), the cache is used as-is;
     its ``len`` entry masks padded memory slots.
 
-    Caches are merged-head (..., L, H*D) — see the module docstring. Any
-    single-position read (self decode AND cross decode) dispatches to the
-    Pallas prefix-streaming kernel when eligible; the einsum fallback splits
-    heads on read.
+    Caches are merged-head (..., L, H*D) — see the module docstring — and may
+    be int8 with per-key scales (``"ks"``/``"vs"``, ops/int8_kv.py), which
+    dequantize on read. A single-position self-attention read of a long bf16
+    cache with no bias goes to the Triton decode kernel on the GPU
+    (ops/attention.py ``use_decode_kernel``); every other read is the masked
+    einsum, which splits heads on read.
 
     ``pad_lens`` (B,) marks each batch row's left-pad length (batched
     left-aligned decode): cache positions ``< pad_lens[b]`` are masked. Kept
-    separate from ``attn_bias`` so the single-position decode kernel — which
-    takes pad lengths natively — stays engaged for batched serving.
+    separate from ``attn_bias`` so the decode kernel, which takes pad lengths
+    natively, stays engaged for batched serving.
     """
     from .ops import attention as _attn
 
     k = q if k is None else k
     v = k if v is None else v
 
-    if cache is not None and "ks" in cache:  # int8 KV cache (per-op path)
-        assert attn_bias is None, "int8 per-op attention has no bias support"
-        if cache_pos is not None:
-            return _int8_self_decode_apply(p, cfg, k, v, q, cache, cache_pos,
-                                           cache_layer, pad_lens)
-        return _int8_cross_decode_apply(p, cfg, q, cache)
-
-    if cache is not None and cache_pos is not None:  # self-attention, KV-cached
-        k_new = linear(p["k"], k)  # (..., S, H*D) — merged, matches the cache
-        v_new = linear(p["v"], v)
-        # cache-layer variant: leaves are the FULL layer-stacked array
-        # (L, ..., Smax, H*D) — write only the new block at (layer, ..., pos);
-        # a full per-layer slice write-back would move the whole cache per step
-        new_cache, ck, cv = _write_cache(cache, k_new, v_new, cache_pos, cache_layer)
+    if cache is not None:
+        if cache_pos is not None:  # self-attention, KV-cached
+            # cache-layer variant: leaves are the FULL layer-stacked array
+            # (L, ..., Smax, H*D) — write only the new block at (layer, ...,
+            # pos); a full per-layer slice write-back would move the whole
+            # cache per step
+            new_cache, cur = _write_cache(cache, linear(p["k"], k), linear(p["v"], v),
+                                          cache_pos, cache_layer, cfg.tp_axis)
+            ends = cache_pos + 1 + lax.broadcasted_iota(jnp.int32, (q.shape[-2], 1), 0)
+        else:  # precomputed cross-attention K/V (merged + "len")
+            new_cache, cur = None, cache
+            lens = cache["len"]
+            ends = lens[..., None, None, None] if lens.ndim else lens
+        ck, cv = cur["k"], cur["v"]
+        q_m = linear(p["q"], q)
         s, l_max = q.shape[-2], ck.shape[-2]
-
-        if s == 1 and cfg.attn_impl != "xla" and _attn.use_decode_kernel(l_max, ck.shape[-1]):
-            kernel_bias, convertible = _decode_kernel_bias(attn_bias, l_max, cfg.n_heads)
-            if convertible:
-                from .ops.decode_attention import decode_attention
-
-                q_m = linear(p["q"], q)  # (..., 1, H*D) — kernel takes merged heads
-                out = decode_attention(q_m, ck.astype(q_m.dtype), cv.astype(q_m.dtype),
-                                       cache_pos + 1, cfg.n_heads, pad_lens, kernel_bias)
-                return reduce_linear(p["o"], out, cfg.tp_axis), new_cache
-
-        qh = split_heads(linear(p["q"], q), cfg.n_heads, cfg.head_dim)
-        kh = split_heads(ck.astype(qh.dtype), cfg.n_heads, cfg.head_dim)
-        vh = split_heads(cv.astype(qh.dtype), cfg.n_heads, cfg.head_dim)
-        row = lax.broadcasted_iota(jnp.int32, (s, l_max), 0)
-        col = lax.broadcasted_iota(jnp.int32, (s, l_max), 1)
-        mask_bias = jnp.where(col <= cache_pos + row, 0.0, -jnp.inf).astype(jnp.float32)
-        if pad_lens is not None:
-            # finite -1e30 (not -inf): a left-padded row's pad-region queries
-            # see no valid keys; -inf would make their (discarded) softmax NaN
-            pad_bias = jnp.where(jnp.arange(l_max)[None, :] >= pad_lens[:, None], 0.0, -1e30)
-            mask_bias = mask_bias + pad_bias.astype(jnp.float32)[:, None, None, :]
-        bias = mask_bias if attn_bias is None else attn_bias + mask_bias
-        out = sdpa(qh, kh, vh, bias, False, cfg.attn_impl)
-        return reduce_linear(p["o"], merge_heads(out), cfg.tp_axis), new_cache
-
-    if cache is not None:  # precomputed cross-attention K/V (merged + "len")
-        s, l_max = q.shape[-2], cache["k"].shape[-2]
-        if (s == 1 and cfg.attn_impl != "xla" and attn_bias is None
-                and _attn.use_decode_kernel(l_max, cache["k"].shape[-1])):
+        hd = ck.shape[-1]
+        if (s == 1 and cache_pos is not None and cfg.attn_impl != "xla"
+                and "ks" not in cache and ck.dtype == q_m.dtype
+                and _attn.use_decode_kernel(q_m.dtype, l_max, hd // cfg.n_heads,
+                                            attn_bias is not None)):
             from .ops.decode_attention import decode_attention
 
-            q_m = linear(p["q"], q)
-            out = decode_attention(q_m, cache["k"].astype(q_m.dtype), cache["v"].astype(q_m.dtype),
-                                   cache["len"], cfg.n_heads)
-            return reduce_linear(p["o"], out, cfg.tp_axis)
-        qh = split_heads(linear(p["q"], q), cfg.n_heads, cfg.head_dim)
-        kh = split_heads(cache["k"].astype(qh.dtype), cfg.n_heads, cfg.head_dim)
-        vh = split_heads(cache["v"].astype(qh.dtype), cfg.n_heads, cfg.head_dim)
-        # mask memory slots >= len (cache padding and/or per-row valid lengths)
-        lens = cache["len"][..., None, None, None] if cache["len"].ndim else cache["len"]
-        len_bias = jnp.where(jnp.arange(l_max) < lens, 0.0, -1e30).astype(jnp.float32)
-        bias = len_bias if attn_bias is None else attn_bias + len_bias
-        out = sdpa(qh, kh, vh, bias, causal, cfg.attn_impl)
-        return reduce_linear(p["o"], merge_heads(out), cfg.tp_axis)
+            out = decode_attention(q_m, ck, cv, cache_pos + 1, cfg.n_heads, pad_lens)
+        else:
+            kf, vf = _read_kv(cur, q_m.dtype)
+            qh = split_heads(q_m, cfg.n_heads, cfg.head_dim)
+            kh = split_heads(kf, cfg.n_heads, cfg.head_dim)
+            vh = split_heads(vf, cfg.n_heads, cfg.head_dim)
+            # key j is visible to query row i iff j < ends[i] (causal prefix
+            # for self-attention, the valid memory for cross-attention);
+            # finite -1e30 (not -inf): a left-padded row's pad-region queries
+            # see no valid keys and -inf would make their (discarded) softmax NaN
+            key = jnp.arange(l_max)
+            mask_bias = jnp.where(key < ends, 0.0, -1e30).astype(jnp.float32)
+            if pad_lens is not None:
+                pad_bias = jnp.where(key[None, :] >= pad_lens[:, None], 0.0, -1e30)
+                mask_bias = mask_bias + pad_bias.astype(jnp.float32)[:, None, None, :]
+            bias = mask_bias if attn_bias is None else attn_bias + mask_bias
+            out = merge_heads(sdpa(qh, kh, vh, bias, causal, cfg.attn_impl))
+        out = reduce_linear(p["o"], out, cfg.tp_axis)
+        return out if new_cache is None else (out, new_cache)
 
-    q_m = linear(p["q"], q)
-    k_m = linear(p["k"], k)
-    v_m = linear(p["v"], v)
-    if cfg.attn_impl != "xla" and _attn.use_encoder_kernel(q_m, k_m, cfg.n_heads, attn_bias):
-        from .ops.encoder_attention import encoder_attention
-
-        return reduce_linear(p["o"], encoder_attention(q_m, k_m, v_m, cfg.n_heads, causal), cfg.tp_axis)
-    qh = split_heads(q_m, cfg.n_heads, cfg.head_dim)
-    kh = split_heads(k_m, cfg.n_heads, cfg.head_dim)
-    vh = split_heads(v_m, cfg.n_heads, cfg.head_dim)
+    qh = split_heads(linear(p["q"], q), cfg.n_heads, cfg.head_dim)
+    kh = split_heads(linear(p["k"], k), cfg.n_heads, cfg.head_dim)
+    vh = split_heads(linear(p["v"], v), cfg.n_heads, cfg.head_dim)
     out = sdpa(qh, kh, vh, attn_bias, causal, cfg.attn_impl)
     return reduce_linear(p["o"], merge_heads(out), cfg.tp_axis)
 
@@ -377,23 +274,32 @@ def encoder_layer_apply(p: dict, cfg: LayerConfig, x: jnp.ndarray, attn_bias=Non
     return x
 
 
-def _write_cache(cache, k_new, v_new, pos, cache_layer):
-    """The merged-head cache update shared by mha_apply and the fused path."""
-    if cache_layer is not None:
-        start = (cache_layer,) + (0,) * (cache["k"].ndim - 3) + (pos, 0)
-        new_cache = {
-            "k": lax.dynamic_update_slice(cache["k"], k_new.astype(cache["k"].dtype)[None], start),
-            "v": lax.dynamic_update_slice(cache["v"], v_new.astype(cache["v"].dtype)[None], start),
-        }
-        ck = lax.dynamic_index_in_dim(new_cache["k"], cache_layer, 0, keepdims=False)
-        cv = lax.dynamic_index_in_dim(new_cache["v"], cache_layer, 0, keepdims=False)
-        return new_cache, ck, cv
-    start = (0,) * (cache["k"].ndim - 2) + (pos, 0)
-    new_cache = {
-        "k": lax.dynamic_update_slice(cache["k"], k_new.astype(cache["k"].dtype), start),
-        "v": lax.dynamic_update_slice(cache["v"], v_new.astype(cache["v"].dtype), start),
-    }
-    return new_cache, new_cache["k"], new_cache["v"]
+def _write_cache(cache, k_new, v_new, pos, cache_layer, tp_axis=None):
+    """Write this chunk's merged-head K/V at ``pos`` (quantizing per key into
+    an int8 cache, with the tp-pmaxed full-width scale under tensor
+    parallelism). Returns ``(new_cache, layer_view)``: the view holds this
+    layer's ``k``/``v`` (and int8 scales) to attend over."""
+    if "ks" in cache:
+        from .ops.int8_kv import quantize_rows
+
+        k_new, ks = quantize_rows(k_new, tp_axis=tp_axis)
+        v_new, vs = quantize_rows(v_new, tp_axis=tp_axis)
+        new = {"k": k_new, "v": v_new, "ks": ks[..., 0], "vs": vs[..., 0]}
+    else:
+        new = {"k": k_new, "v": v_new}
+    new_cache = dict(cache)
+    for name, val in new.items():
+        full = cache[name]
+        tail = (pos, 0) if name in ("k", "v") else (pos,)
+        start = (0,) * (full.ndim - len(tail)) + tail
+        if cache_layer is not None:
+            val, start = val[None], (cache_layer,) + start[1:]
+        new_cache[name] = lax.dynamic_update_slice(full, val.astype(full.dtype), start)
+    if cache_layer is None:
+        return new_cache, new_cache
+    view = {name: lax.dynamic_index_in_dim(new_cache[name], cache_layer, 0, keepdims=False)
+            for name in new}
+    return new_cache, view
 
 
 def decoder_layer_apply(
@@ -530,12 +436,11 @@ def decoder_apply(
 
 
 def padded_cache_len(max_len: int) -> int:
-    """KV-cache lengths are rounded up to a 128 multiple (>= the decode
-    kernels' 32-key block, and divisible by the larger block sizes the fused
-    step picks at small batch — ops/decode_step.py:_pick_kv_block).
+    """KV-cache lengths are rounded up to a 128 multiple, so the decode
+    kernel (ops/decode_attention.py) streams them in whole key blocks.
 
     Slots beyond the true maximum are never attended (every read path masks
-    by position), they just make the cache streamable by the Pallas kernels.
+    by position).
     """
     return -(-max_len // 128) * 128
 

@@ -1,6 +1,6 @@
 """Cached HTTP download of pretrained checkpoints.
 
-TPU-native equivalent of the reference's ``torch_hub_download`` (utils.py:6-16),
+Equivalent of the reference's ``torch_hub_download`` (utils.py:6-16),
 without a torch dependency: files are cached under
 ``$PYTORCH_MODELS_TPU_CACHE`` (default ``~/.cache/pytorch_models_tpu``) and the
 download is skipped when the file already exists.

@@ -12,7 +12,7 @@ class InferenceModel:
         raise NotImplementedError("training is not supported (matches the reference, README.md:9)")
 
     def to_bf16(self):
-        """Cast floating params to bfloat16 — the TPU serving fast path."""
+        """Cast floating params to bfloat16 — the serving fast path."""
         import jax.numpy as jnp
 
         from .params import cast_tree

@@ -3,7 +3,7 @@
 The reference's only persistence is caching converted checkpoints as torch
 files (reference text/t5.py:261-263, 329-331). Here converted pytrees can be
 saved once and re-loaded without the source checkpoint or converter —
-orbax is the TPU-native checkpoint format (sharding-aware, async-capable).
+orbax is JAX's native checkpoint format (sharding-aware, async-capable).
 """
 
 from __future__ import annotations

@@ -1,17 +1,15 @@
-"""int8 CROSS-KV serving mode end-to-end (USE_INT8_KV_CROSS): whisper and T5
-fused decode streams quantized encoder caches. Exact math is pinned by
-tests/ops/test_decode_step.py::test_fused_cross_step_int8_cross_kv_matches_oracle;
-these check the generator plumbing (quantize-at-encode, decode-loop routing)
-runs and is deterministic. Token identity with bf16 is NOT expected.
+"""int8 KV serving modes end-to-end (USE_INT8_KV / USE_INT8_KV_CROSS): the
+Whisper and T5 generators quantize their caches and decode over them,
+dequantizing on read. The attention math is pinned against fp32 attention
+over the dequantized caches by tests/ops/test_int8_kv.py; these check the
+generator plumbing (quantize-at-encode, decode-loop routing) runs, reads the
+int8 caches, and is deterministic. Token identity with bf16 is NOT expected.
 """
 
-import jax
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from pytorch_models_tpu.audio2text import Whisper, WhisperGenerator
-from pytorch_models_tpu.ops import attention as attn_mod
 from pytorch_models_tpu.text import T5Generator, T5Model
 
 INIT, EOT = [50, 51, 52], 99
@@ -19,105 +17,58 @@ INIT, EOT = [50, 51, 52], 99
 
 @pytest.fixture(scope="module")
 def whisper():
-    # d_model must be a 128 multiple or fused_step_eligible rejects the
-    # megakernel and these tests silently cover nothing
     return Whisper(vocab_size=100, n_layers=2, d_model=128, n_mels=80)
 
 
-def _flags(on):
-    attn_mod.USE_FUSED_STEP = True if on else None
-    attn_mod.USE_INT8_KV_CROSS = bool(on)
-    jax.clear_caches()
+def _audios(seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([(rng.standard_normal(16000 * 30) * 0.1).astype(np.float32)
+                     for _ in range(2)])
 
 
-def test_whisper_int8_cross_generation(whisper):
-    from pytorch_models_tpu.models.audio2text.whisper import _whisper_fused_ok
-
-    rng = np.random.default_rng(3)
-    audios = np.stack([(rng.standard_normal(16000 * 30) * 0.1).astype(np.float32)
-                       for _ in range(2)])
-    gen = WhisperGenerator(whisper)
-    _flags(True)
-    try:
-        # guard against vacuous coverage: the fused step must be eligible
-        assert _whisper_fused_ok(whisper.params["decoder"], whisper.cfg, 16)
-        with pltpu.force_tpu_interpret_mode():
-            a = gen.transcribe_tokens_batch(audios, INIT, EOT, max_tokens=10)
-            b = gen.transcribe_tokens_batch(audios, INIT, EOT, max_tokens=10)
-    finally:
-        _flags(False)
-    assert a == b
+def _check_whisper(gen, audios):
+    a = gen.transcribe_tokens_batch(audios, INIT, EOT, max_tokens=10)
+    assert a == gen.transcribe_tokens_batch(audios, INIT, EOT, max_tokens=10)
     for out in a:
         assert out[:3] == INIT and all(0 <= t < 100 for t in out)
 
 
-def test_t5_int8_cross_generation():
-    from pytorch_models_tpu.models.text.t5 import _t5_fused_ok
-
-    model = T5Model(vocab_size=120, dim=128, n_heads=2, n_layers=2, mlp_dim=256)
-    gen = T5Generator(model=model, tokenizer=object())
+def _check_t5(gen):
     prompts = [[5, 6, 7, 1], [8, 9, 1]]
-    _flags(True)
-    try:
-        assert _t5_fused_ok(model.params["decoder"], model.cfg, 16)
-        with pltpu.force_tpu_interpret_mode():
-            a = gen.generate_tokens_batch(prompts, 10, 0, 1)
-            b = gen.generate_tokens_batch(prompts, 10, 0, 1)
-    finally:
-        _flags(False)
-    assert a == b
+    a = gen.generate_tokens_batch(prompts, 10, 0, 1)
+    assert a == gen.generate_tokens_batch(prompts, 10, 0, 1)
     for out in a:
         assert out[0] == 0 and all(0 <= t < 120 for t in out)
 
 
-def test_t5_int8_self_and_cross_generation():
-    """Full int8 serving for T5: self-KV (group-tiled rel-pos bias) + cross
-    caches quantized. Runs deterministically through the fused path."""
-    from pytorch_models_tpu.models.text.t5 import _t5_fused_ok
-
+def _t5():
     model = T5Model(vocab_size=120, dim=128, n_heads=2, n_layers=2, mlp_dim=256)
-    gen = T5Generator(model=model, tokenizer=object())
-    prompts = [[5, 6, 7, 1], [8, 9, 1]]
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_INT8_KV = True
-    attn_mod.USE_INT8_KV_CROSS = True
-    jax.clear_caches()
-    try:
-        assert _t5_fused_ok(model.params["decoder"], model.cfg, 16)
-        with pltpu.force_tpu_interpret_mode():
-            a = gen.generate_tokens_batch(prompts, 10, 0, 1)
-            b = gen.generate_tokens_batch(prompts, 10, 0, 1)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_INT8_KV = False
-        attn_mod.USE_INT8_KV_CROSS = False
-        jax.clear_caches()
-    assert a == b
-    for out in a:
-        assert out[0] == 0 and all(0 <= t < 120 for t in out)
+    return T5Generator(model=model, tokenizer=object())
 
 
-def test_whisper_int8_self_generation(whisper):
+def test_whisper_int8_cross_generation(whisper, int8_modes):
+    reads = int8_modes(cross_kv=True)
+    _check_whisper(WhisperGenerator(whisper), _audios(3))
+    assert reads["n"] > 0
+
+
+def test_t5_int8_cross_generation(int8_modes):
+    reads = int8_modes(cross_kv=True)
+    _check_t5(_t5())
+    assert reads["n"] > 0
+
+
+def test_t5_int8_self_and_cross_generation(int8_modes):
+    """Full int8 serving for T5: self-KV (with the rel-pos bias on the
+    dequantized path) + cross caches quantized."""
+    reads = int8_modes(self_kv=True, cross_kv=True)
+    _check_t5(_t5())
+    assert reads["n"] > 0
+
+
+def test_whisper_int8_self_generation(whisper, int8_modes):
     """Whisper int8 self-KV: the batched loop quantizes the prefilled cache
     once and every step writes quantized."""
-    from pytorch_models_tpu.models.audio2text.whisper import _whisper_fused_ok
-
-    rng = np.random.default_rng(5)
-    audios = np.stack([(rng.standard_normal(16000 * 30) * 0.1).astype(np.float32)
-                       for _ in range(2)])
-    gen = WhisperGenerator(whisper)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_INT8_KV = True
-    jax.clear_caches()
-    try:
-        assert _whisper_fused_ok(whisper.params["decoder"], whisper.cfg, 16)
-        with pltpu.force_tpu_interpret_mode():
-            a = gen.transcribe_tokens_batch(audios, INIT, EOT, max_tokens=10)
-            b = gen.transcribe_tokens_batch(audios, INIT, EOT, max_tokens=10)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_INT8_KV = False
-        jax.clear_caches()
-    assert a == b
-    for out in a:
-        assert out[:3] == INIT and all(0 <= t < 100 for t in out)
+    reads = int8_modes(self_kv=True)
+    _check_whisper(WhisperGenerator(whisper), _audios(5))
+    assert reads["n"] > 0

@@ -135,18 +135,6 @@ def test_transcribe_matches_teacher_forced_greedy(paired):
     assert actual == tokens
 
 
-def test_preprocessor_fused_matches_xla():
-    """The Pallas fused log-mel path == the XLA path (interpret mode on CPU)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    x = randn(rng(105), 16000, scale=0.5)
-    plain = np.asarray(WhisperPreprocessor(fused=False)(x))
-    with pltpu.force_tpu_interpret_mode():
-        fused = np.asarray(WhisperPreprocessor(fused=True)(x))
-    assert fused.shape == plain.shape
-    np.testing.assert_allclose(fused, plain, rtol=1e-4, atol=1e-4)
-
-
 def test_batched_transcription_matches_single(paired):
     pm, ref, ours, r = paired
     gen = WhisperGenerator(ours)

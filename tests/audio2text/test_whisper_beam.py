@@ -1,7 +1,7 @@
 """Whisper beam search must match (a) greedy at beam_width=1 and (b) a naive
 beam oracle computed by full decoder re-forward (``whisper_decode``: no KV
 caches, no parent-gather, no fixed-shape buffers) under the same top-2W
-selection rule as models/text/beam.py. The fused one-kernel route (interpret
+selection rule as models/text/beam.py. The decode-kernel route (interpret
 mode) must agree with the einsum route token-for-token.
 """
 
@@ -108,49 +108,25 @@ def test_matches_naive_with_eot_and_penalty(gen, audio):
     np.testing.assert_allclose(scores, n_scores, rtol=0, atol=2e-4)
 
 
-def test_fused_step_path_matches_einsum(gen, audio):
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.ops import attention as attn_mod
-
-    base = gen.transcribe_beam_tokens(audio, [1, 2], eot_id=7, max_tokens=8,
-                                      beam_width=3, return_all=True)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_DECODE_KERNEL = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            fused = gen.transcribe_beam_tokens(audio, [1, 2], eot_id=7, max_tokens=8,
-                                               beam_width=3, return_all=True)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_DECODE_KERNEL = None
-        jax.clear_caches()
+def test_fused_step_path_matches_einsum(gen, audio, request):
+    """Beam decode with self- and cross-attention reads through the Triton
+    decode kernel (interpret mode) == the einsum path."""
+    kw = dict(eot_id=7, max_tokens=8, beam_width=3, return_all=True)
+    base = gen.transcribe_beam_tokens(audio, [1, 2], **kw)
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    fused = gen.transcribe_beam_tokens(audio, [1, 2], **kw)
+    assert calls["traces"] > 0
     assert fused[0] == base[0]
     np.testing.assert_allclose(fused[1], base[1], atol=1e-3)
 
 
-def test_fused_step_embed_fold_matches_einsum(gen, audio):
-    """Beam decode with the in-kernel embed phase forced on (the beam body's
-    fold branch, off by default on CPU) must match the per-op path exactly."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.ops import attention as attn_mod
-
-    base = gen.transcribe_beam_tokens(audio, [1, 2], eot_id=7, max_tokens=8,
-                                      beam_width=3, return_all=True)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_DECODE_KERNEL = True
-    attn_mod.USE_FUSED_EMBED = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            fused = gen.transcribe_beam_tokens(audio, [1, 2], eot_id=7, max_tokens=8,
-                                               beam_width=3, return_all=True)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_DECODE_KERNEL = None
-        attn_mod.USE_FUSED_EMBED = None
-        jax.clear_caches()
+def test_fused_step_embed_fold_matches_einsum(gen, audio, request):
+    """Length-penalized beam decode through the decode kernel (interpret
+    mode) == the einsum path."""
+    kw = dict(eot_id=7, max_tokens=10, beam_width=2, length_penalty=0.6, return_all=True)
+    base = gen.transcribe_beam_tokens(audio, [1, 2], **kw)
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    fused = gen.transcribe_beam_tokens(audio, [1, 2], **kw)
+    assert calls["traces"] > 0
     assert fused[0] == base[0]
     np.testing.assert_allclose(fused[1], base[1], atol=1e-3)

@@ -67,28 +67,14 @@ def test_empty_queue(model):
     assert cb.transcribe_tokens_many([], INIT, EOT) == []
 
 
-def test_fused_step_path_matches_plain(model, plain, audios):
-    """The TPU route: pooled decode through the fused cross-attention
-    megakernel with per-row pad_lens/pos_ids (interpret mode)."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.ops import attention as attn_mod
-
+def test_fused_step_path_matches_plain(model, plain, audios, request):
+    """The GPU route: pooled decode with self/cross reads through the Triton
+    decode kernel and per-row pad_lens (interpret mode)."""
     base = _oracle(plain, audios[:3], 16)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_DECODE_KERNEL = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            cb = WhisperContinuousBatchingGenerator(model, batch_size=2,
-                                                    check_every=3, pool_ctx=64)
-            outs = cb.transcribe_tokens_many(audios[:3], INIT, EOT, max_tokens=16)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_DECODE_KERNEL = None
-        jax.clear_caches()
-    assert outs == base
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    cb = WhisperContinuousBatchingGenerator(model, batch_size=2, check_every=3, pool_ctx=64)
+    assert cb.transcribe_tokens_many(audios[:3], INIT, EOT, max_tokens=16) == base
+    assert calls["traces"] > 0
 
 
 def test_streaming_callback_delivers_every_token_once(model, plain, audios):
@@ -119,7 +105,7 @@ def _sampling_oracle(model, audio, max_tokens, seed, req_idx, topk, top_p, temp)
     from pytorch_models_tpu.models.text.generator import _sample
 
     padded = np.pad(audio, (0, 30 * 16000 - len(audio)))
-    mel = WhisperPreprocessor("tiny", fused=False)(padded)[None]
+    mel = WhisperPreprocessor("tiny")(padded)[None]
     key_r = jax.random.fold_in(jax.random.PRNGKey(seed), req_idx)
     toks = list(INIT)
     g = 0
@@ -201,31 +187,12 @@ def test_batched_admission_encodes(model, plain, audios):
     assert cb.last_stats.admissions == len(audios)
 
 
-def test_megakernel_pool_matches_plain(audios):
-    """NON-vacuous megakernel coverage: a fused-ELIGIBLE model (d_model %
-    128 == 0 — the TINY fixture's d_model=64 fails fused_step_eligible and
-    silently degrades test_fused_step_path_matches_plain to the XLA route).
-    bf16 twin of the int8 pool tests: exercises the head phase, where head_v
-    must be a static argnum of _wcb_steps (traced, it gets captured by the
-    kernel closure and pallas_call rejects the trace)."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.models.audio2text.whisper import _whisper_fused_ok
-    from pytorch_models_tpu.ops import attention as attn_mod
-
+def test_megakernel_pool_matches_plain(audios, request):
+    """Decode-kernel pool at a width with several heads (d_model 128: two
+    64-wide heads, each its own kernel program) == the plain generator."""
     model = Whisper(vocab_size=100, n_layers=2, d_model=128, n_mels=80)
-    plain = WhisperGenerator(model)
-    base = _oracle(plain, audios[:3], 14)
-    attn_mod.USE_FUSED_STEP = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            cb = WhisperContinuousBatchingGenerator(model, batch_size=2,
-                                                    check_every=3, pool_ctx=64)
-            assert _whisper_fused_ok(model.params["decoder"], model.cfg, 64)
-            outs = cb.transcribe_tokens_many(audios[:3], INIT, EOT, max_tokens=14)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        jax.clear_caches()
-    assert outs == base
+    base = _oracle(WhisperGenerator(model), audios[:3], 14)
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    cb = WhisperContinuousBatchingGenerator(model, batch_size=2, check_every=3, pool_ctx=64)
+    assert cb.transcribe_tokens_many(audios[:3], INIT, EOT, max_tokens=14) == base
+    assert calls["traces"] > 0

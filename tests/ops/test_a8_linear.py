@@ -101,17 +101,14 @@ def test_a8_vit_end_to_end_accuracy():
     assert cos.min() > 0.99, cos
 
 
-def test_a8_full_whisper_serving_smoke():
+def test_a8_full_whisper_serving_smoke(monkeypatch):
     """Full w8a8 serving (the BENCH_DTYPE=int8_a8 whisper path): int8 weights
-    + USE_A8_DECODE (megakernel incl. int8 head) + USE_A8_LINEAR (encoder /
-    cross-KV projections) must run end-to-end and produce valid tokens."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    + USE_A8_LINEAR in every decoder and cross-KV projection must run
+    end-to-end and produce valid tokens."""
     from pytorch_models_tpu.models.audio2text.whisper import (
         Whisper,
         _whisper_generate_batch_body,
     )
-    from pytorch_models_tpu.ops import attention as attn_mod
 
     m = Whisper(vocab_size=64, n_layers=2, d_model=128)
     m.params = jax.tree.map(
@@ -121,19 +118,12 @@ def test_a8_full_whisper_serving_smoke():
     memory = jnp.asarray(r.standard_normal((2, 64, 128)) * 0.3, jnp.bfloat16)
     init = jnp.asarray([3, 5], jnp.int32)
 
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_A8_DECODE = True
-    layers_mod.USE_A8_LINEAR = True
+    monkeypatch.setattr(layers_mod, "USE_A8_LINEAR", True)
+    jax.clear_caches()
     try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            buf, n = _whisper_generate_batch_body(m.params, m.cfg, memory, init,
-                                                  12, eot_id=-1)
+        buf, n = _whisper_generate_batch_body(m.params, m.cfg, memory, init, 12, eot_id=-1)
         buf, n = np.asarray(buf), np.asarray(n)
     finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_A8_DECODE = False
-        layers_mod.USE_A8_LINEAR = False
         jax.clear_caches()
     assert buf.shape == (2, 12) and (n == 12).all()
     assert ((buf >= 0) & (buf < 64)).all()

@@ -1,86 +1,72 @@
-"""Merged-head encoder attention kernel parity vs the einsum path (interpret)."""
+"""Encoder/prefill attention over merged-head projections (transformer.mha_apply
+without a cache: project to (B, L, H*D), split heads, ``sdpa``, merge, out-
+project) vs a per-head NumPy oracle."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from pytorch_models_tpu.ops.attention import _sdpa_xla
-from pytorch_models_tpu.ops.encoder_attention import encoder_attention
+import pytorch_models_tpu.transformer as tfm
 from tests.oracle import rng
 
 
-def _oracle(q, k, v, h, causal):
-    b, lq, hd = q.shape
-    lk = k.shape[1]
-    d = hd // h
-    qh = q.reshape(b, lq, h, d).transpose(0, 2, 1, 3)
-    kh = k.reshape(b, lk, h, d).transpose(0, 2, 1, 3)
-    vh = v.reshape(b, lk, h, d).transpose(0, 2, 1, 3)
-    out = _sdpa_xla(qh, kh, vh, None, causal)
-    return out.transpose(0, 2, 1, 3).reshape(b, lq, hd)
+def _np_mha(p, x, mem, h, causal):
+    """Per-head float64 reference of the reference's MultiHeadAttention."""
+    f = lambda a: np.asarray(a, np.float64)
+    lin = lambda q, w: q @ f(w["w"]) + f(w["b"])
+    q, k, v = lin(f(x), p["q"]), lin(f(mem), p["k"]), lin(f(mem), p["v"])
+    lq, lk, d = q.shape[-2], k.shape[-2], q.shape[-1] // h
+    out = np.zeros_like(q)
+    for i in range(h):
+        sl = slice(i * d, (i + 1) * d)
+        s = q[..., sl] @ np.swapaxes(k[..., sl], -1, -2) / np.sqrt(d)
+        if causal:
+            s = np.where(np.arange(lk)[None, :] <= np.arange(lq)[:, None], s, -np.inf)
+        w = np.exp(s - s.max(-1, keepdims=True))
+        out[..., sl] = (w / w.sum(-1, keepdims=True)) @ v[..., sl]
+    return lin(out, p["o"])
+
+
+def _case(seed, shape_q, shape_kv, h, d, causal, cross):
+    r = rng(seed)
+    cfg = tfm.LayerConfig.make(h * d, n_heads=h)
+    p = tfm.mha_init(jax.random.PRNGKey(seed), cfg)
+    x = jnp.asarray(r.standard_normal(shape_q + (h * d,)), jnp.float32)
+    mem = jnp.asarray(r.standard_normal(shape_kv + (h * d,)), jnp.float32) if cross else x
+    out = tfm.mha_apply(p, cfg, x, mem if cross else None, causal=causal)
+    want = _np_mha(p, x, mem, h, causal)
+    np.testing.assert_allclose(np.asarray(out), want, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize(
     "b,lq,lk,h,d,causal",
     [
-        (2, 197, 197, 12, 64, False),  # ViT-B/16 (single K block, bb-packed)
+        (2, 197, 197, 12, 64, False),  # ViT-B/16
         (2, 197, 197, 12, 64, True),
-        (1, 300, 1500, 8, 64, False),  # Whisper-base encoder (multi K block)
-        (3, 600, 600, 4, 64, True),    # multi q AND k blocks, causal
+        (1, 300, 1500, 8, 64, False),  # decoder queries over Whisper-base memory
+        (3, 600, 600, 4, 64, True),    # causal prefill
         (2, 64, 64, 4, 32, True),      # head_dim 32
-        (2, 384, 384, 6, 64, True),    # nq=2 with the single-K-block path (BERT-384)
+        (2, 384, 384, 6, 64, True),    # BERT-384
     ],
 )
 def test_encoder_attention_parity(b, lq, lk, h, d, causal):
-    r = rng(171)
-    q = jnp.asarray(r.standard_normal((b, lq, h * d)), jnp.float32)
-    k = jnp.asarray(r.standard_normal((b, lk, h * d)), jnp.float32)
-    v = jnp.asarray(r.standard_normal((b, lk, h * d)), jnp.float32)
-
-    with pltpu.force_tpu_interpret_mode():
-        out = encoder_attention(q, k, v, h, causal)
-
-    expected = _oracle(q, k, v, h, causal)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(expected), rtol=2e-5, atol=2e-5)
+    _case(171, (b, lq), (b, lk), h, d, causal, cross=lq != lk)
 
 
 def test_encoder_attention_unbatched():
-    r = rng(172)
-    h, l, d = 4, 50, 64
-    q = jnp.asarray(r.standard_normal((l, h * d)), jnp.float32)
-    k = jnp.asarray(r.standard_normal((l, h * d)), jnp.float32)
-    v = jnp.asarray(r.standard_normal((l, h * d)), jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        out = encoder_attention(q, k, v, h, False)
-    expected = _oracle(q[None], k[None], v[None], h, False)[0]
-    assert out.shape == (l, h * d)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(expected), rtol=2e-5, atol=2e-5)
+    _case(172, (50,), (50,), 4, 64, False, cross=False)
 
 
 def test_encoder_kernel_end_to_end_vit_block():
-    """mha_apply with the kernel forced == the einsum path on a ViT-like block."""
-    import pytorch_models_tpu.transformer as tfm
-    from pytorch_models_tpu.ops import attention as attn_mod
+    """A bf16 ViT-like encoder layer stays within bf16 rounding of fp32."""
+    from pytorch_models_tpu.utils.params import cast_tree
 
     r = rng(173)
     cfg = tfm.LayerConfig.make(128, n_heads=2)
     params = tfm.layer_init(jax.random.PRNGKey(3), cfg)
     x = jnp.asarray(r.standard_normal((2, 30, 128)), jnp.float32)
-
-    attn_mod.USE_ENCODER_KERNEL = False
-    try:
-        baseline = tfm.encoder_layer_apply(params, cfg, x)
-    finally:
-        attn_mod.USE_ENCODER_KERNEL = None
-
-    attn_mod.USE_ENCODER_KERNEL = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            out = tfm.encoder_layer_apply(params, cfg, x)
-    finally:
-        attn_mod.USE_ENCODER_KERNEL = None
-        jax.clear_caches()
-    np.testing.assert_allclose(np.asarray(out), np.asarray(baseline), rtol=2e-5, atol=2e-5)
+    ref = tfm.encoder_layer_apply(params, cfg, x)
+    out = tfm.encoder_layer_apply(cast_tree(params, jnp.bfloat16), cfg, x.astype(jnp.bfloat16))
+    assert out.dtype == jnp.bfloat16
+    np.testing.assert_allclose(np.asarray(out, np.float32), np.asarray(ref), rtol=5e-2, atol=5e-2)

@@ -1,119 +1,107 @@
-"""int8 KV-cache decode attention (ops/int8_kv.py): the kernel's quantized
-math must match the exact jnp oracle, and the whole quantize->attend chain
-must stay close to full-precision attention.
+"""int8 KV caches (ops/int8_kv.py): per-key int8 storage, dequantized on read.
 
-Interpret-mode constraint (CLAUDE.md #14): streams here are <= 2 blocks
-(Lmax = 256 = 2 x 128), so the eager interpret DMA copies never clobber a
-double-buffered slot that hardware would still be protecting.
+Cached decode through ``transformer.mha_apply`` over an int8 cache must equal
+fp32 attention over the dequantized cache (the attention math is the plain
+masked path's), and stay close to full-precision attention.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.sharding import Mesh, PartitionSpec as P
 
-from pytorch_models_tpu.ops.int8_kv import (
-    KV_BLOCK_INT8,
-    int8_attention_oracle,
-    int8_decode_attention,
-    make_int8_kv_cache,
-    prefill_int8_kv,
-    quantize_rows,
-    write_int8_kv,
-)
+import pytorch_models_tpu.transformer as tfm
+from pytorch_models_tpu.ops.int8_kv import dequantize, quantize_kv, quantize_rows
 
-L_MAX = 2 * KV_BLOCK_INT8  # 2 streamed blocks: the interpret-safe maximum
+L_MAX = 256
 H, D = 4, 32
 HD = H * D
 
 
-def _setup(b, seed=0, pads=None, ends=None):
-    rng = np.random.default_rng(seed)
-    q = jnp.asarray(rng.standard_normal((b, 1, HD)), jnp.float32)
-    k = jnp.asarray(rng.standard_normal((b, L_MAX, HD)), jnp.float32)
-    v = jnp.asarray(rng.standard_normal((b, L_MAX, HD)), jnp.float32)
-    cur_k = jnp.asarray(rng.standard_normal((b, HD)), jnp.float32)
-    cur_v = jnp.asarray(rng.standard_normal((b, HD)), jnp.float32)
-    k_q, v_q, k_s, v_s = make_int8_kv_cache(b, L_MAX, HD)
-    k_q, v_q, k_s, v_s = prefill_int8_kv(k_q, v_q, k_s, v_s, k, v)
-    pads = jnp.asarray(pads if pads is not None else [0] * b, jnp.int32)
-    ends = jnp.asarray(ends if ends is not None else [L_MAX] * b, jnp.int32)
-    return q, k, v, cur_k, cur_v, k_q, v_q, k_s, v_s, pads, ends
+def _layer(seed=0):
+    cfg = tfm.LayerConfig.make(HD, n_heads=H)
+    return cfg, tfm.mha_init(jax.random.PRNGKey(seed), cfg)
 
 
-def _f32_reference(q, k, v, pads, ends, cur_k=None, cur_v=None):
-    """Plain full-precision masked attention (per-row valid range + optional
-    current position), merged-head layout."""
-    b, _, hd = q.shape
-    d = hd // H
-    outs = []
-    for r in range(b):
-        kk = k[r].reshape(L_MAX, H, d)
-        vv = v[r].reshape(L_MAX, H, d)
-        if cur_k is not None:
-            kk = jnp.concatenate([kk, cur_k[r].reshape(1, H, d)], 0)
-            vv = jnp.concatenate([vv, cur_v[r].reshape(1, H, d)], 0)
-        qq = q[r, 0].reshape(H, d)
-        s = jnp.einsum("hd,lhd->hl", qq, kk) / np.sqrt(d)
-        idx = jnp.arange(kk.shape[0])
-        valid = (idx >= pads[r]) & (idx < ends[r])
-        if cur_k is not None:
-            valid = valid.at[-1].set(True)
-        s = jnp.where(valid[None, :], s, -1e30)
-        p = jax.nn.softmax(s, axis=-1)
-        outs.append(jnp.einsum("hl,lhd->hd", p, vv).reshape(1, 1, hd))
-    return jnp.concatenate(outs, 0)
+def _np_attend(q_m, k, v, lo, hi):
+    """fp64 per-head attention of one query row over keys [lo, hi)."""
+    q_m, k, v = (np.asarray(a, np.float64) for a in (q_m, k, v))
+    out = np.zeros(HD)
+    for h in range(H):
+        sl = slice(h * D, (h + 1) * D)
+        s = k[lo:hi, sl] @ q_m[sl] / np.sqrt(D)
+        w = np.exp(s - s.max())
+        out[sl] = (w / w.sum()) @ v[lo:hi, sl]
+    return out
 
 
-@pytest.mark.parametrize("b,pads,ends,cur", [
-    (1, [0], [L_MAX], False),
-    (1, [7], [200], True),
-    (3, [0, 5, 130], [L_MAX, 190, 256], True),
-    (8, None, [100] * 8, True),
-    (16, [0] * 8 + [3] * 8, [L_MAX] * 8 + [140] * 8, True),
+def _lin(p, x):
+    return np.asarray(x, np.float64) @ np.asarray(p["w"], np.float64) + np.asarray(p["b"], np.float64)
+
+
+def _decode(b, pos, pads, seed):
+    """One int8-cached decode step at ``pos`` over a prefilled, quantized
+    cache; returns (out, new_cache, x, params)."""
+    r = np.random.default_rng(seed)
+    cfg, p = _layer(seed)
+    prefix = jnp.asarray(r.standard_normal((b, L_MAX, HD)), jnp.float32)
+    cache = quantize_kv({"k": prefix, "v": prefix[:, ::-1]})
+    x = jnp.asarray(r.standard_normal((b, 1, HD)), jnp.float32)
+    pads = None if pads is None else jnp.asarray(pads, jnp.int32)
+    out, new = tfm.mha_apply(p, cfg, x, cache=cache, cache_pos=pos, pad_lens=pads)
+    return out, new, x, p
+
+
+@pytest.mark.parametrize("b,pos,pads", [
+    (1, 0, None),
+    (1, 199, [7]),
+    (3, 189, [0, 5, 130]),
+    (8, 99, None),
+    (16, 139, [0] * 8 + [3] * 8),
 ])
-def test_kernel_matches_quantized_oracle(b, pads, ends, cur):
-    """The Pallas kernel reproduces the exact quantized-math oracle (int
-    dots are exact; the f32 chain mirrors op-for-op)."""
-    q, k, v, cur_k, cur_v, k_q, v_q, k_s, v_s, pads, ends = _setup(b, seed=b)
-    kw = dict(cur_k=cur_k, cur_v=cur_v) if cur else {}
-    got = int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, H,
-                                pad_lens=pads, interpret=True, **kw)
-    want = int8_attention_oracle(q, k_q, v_q, k_s, v_s, ends, H,
-                                 pad_lens=pads, **kw)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=0, atol=1e-6)
+def test_int8_decode_matches_dequantized_oracle(b, pos, pads):
+    out, new, x, p = _decode(b, pos, pads, seed=b)
+    k = np.asarray(dequantize(new["k"], new["ks"], jnp.float32))
+    v = np.asarray(dequantize(new["v"], new["vs"], jnp.float32))
+    q_m = _lin(p["q"], x[:, 0])
+    for row in range(b):
+        lo = 0 if pads is None else pads[row]
+        ctx = _np_attend(q_m[row], k[row], v[row], lo, pos + 1)
+        np.testing.assert_allclose(np.asarray(out[row, 0]), _lin(p["o"], ctx),
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_close_to_full_precision():
-    """End-to-end quantization noise: prefill-quantized cache + int8 dots
-    stay within a few percent of full-precision attention (observed ~2.7%
-    of the output range on random normal inputs — per-key K/V rounding plus
-    the per-column prob rounding)."""
-    b = 8
-    q, k, v, cur_k, cur_v, k_q, v_q, k_s, v_s, pads, ends = _setup(b, seed=3)
-    got = int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, H, pad_lens=pads,
-                                cur_k=cur_k, cur_v=cur_v, interpret=True)
-    want = _f32_reference(q, k, v, pads, ends, cur_k, cur_v)
-    err = np.abs(np.asarray(got) - np.asarray(want))
-    scale = np.abs(np.asarray(want)).max()
-    assert err.max() / scale < 0.04, err.max() / scale
+    """Quantization noise end to end: the int8 cache's decode output stays
+    within a few percent of the same step over the fp32 cache."""
+    b, pos = 8, 200
+    r = np.random.default_rng(3)
+    cfg, p = _layer(3)
+    prefix = jnp.asarray(r.standard_normal((b, L_MAX, HD)), jnp.float32)
+    x = jnp.asarray(r.standard_normal((b, 1, HD)), jnp.float32)
+    full = {"k": prefix, "v": prefix * 0.5}
+    got, _ = tfm.mha_apply(p, cfg, x, cache=quantize_kv(full), cache_pos=pos)
+    want, _ = tfm.mha_apply(p, cfg, x, cache=full, cache_pos=pos)
+    err = np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(np.asarray(want)).max()
+    assert err < 0.04, err
 
 
 def test_write_matches_prefill():
-    """write_int8_kv at position p produces the same cache state as a
-    prefill covering p (per-key quantization is position-local)."""
+    """Writing positions one step at a time into an int8 cache gives the same
+    state as quantizing a prefilled cache (per-key quantization is
+    position-local)."""
     b = 4
-    rng = np.random.default_rng(11)
-    k = jnp.asarray(rng.standard_normal((b, 8, HD)), jnp.float32)
-    v = jnp.asarray(rng.standard_normal((b, 8, HD)), jnp.float32)
-    a = make_int8_kv_cache(b, L_MAX, HD)
-    a = prefill_int8_kv(*a, k, v)
-    bstate = make_int8_kv_cache(b, L_MAX, HD)
-    for p in range(8):
-        bstate = write_int8_kv(*bstate, k[:, p:p + 1], v[:, p:p + 1], p)
-    for x, y in zip(a, bstate):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    r = np.random.default_rng(11)
+    k = jnp.asarray(r.standard_normal((b, 8, HD)), jnp.float32)
+    v = jnp.asarray(r.standard_normal((b, 8, HD)), jnp.float32)
+    zeros = jnp.zeros((b, L_MAX, HD), jnp.float32)
+    a = quantize_kv({"k": zeros.at[:, :8].set(k), "v": zeros.at[:, :8].set(v)})
+    state = quantize_kv({"k": zeros, "v": zeros})
+    for pos in range(8):
+        state, _ = tfm._write_cache(state, k[:, pos:pos + 1], v[:, pos:pos + 1], pos, None)
+    for name in ("k", "v", "ks", "vs"):
+        np.testing.assert_array_equal(np.asarray(a[name]), np.asarray(state[name]))
 
 
 def test_quantize_rows_zero_rows():
@@ -126,31 +114,32 @@ def test_quantize_rows_zero_rows():
 
 
 def test_empty_range_rows_no_cur():
-    """A row whose [pad, end) is empty with no current position must return
-    zeros (l==0 guard), not NaN."""
+    """Cross-attention over an int8 cache: a row with no valid memory (an
+    unadmitted pool slot) stays finite, the others match the dequantized
+    oracle."""
     b = 2
-    q, k, v, _, _, k_q, v_q, k_s, v_s, _, _ = _setup(b, seed=5)
-    pads = jnp.asarray([0, 10], jnp.int32)
-    ends = jnp.asarray([64, 10], jnp.int32)  # row 1: empty
-    got = int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, H,
-                                pad_lens=pads, interpret=True)
-    assert np.isfinite(np.asarray(got)).all()
-    np.testing.assert_array_equal(np.asarray(got[1]), 0.0)
+    r = np.random.default_rng(5)
+    cfg, p = _layer(5)
+    mem = jnp.asarray(r.standard_normal((b, 100, HD)), jnp.float32)
+    cross = quantize_kv(tfm.mha_project_kv(p, cfg, mem, valid_lens=jnp.asarray([64, 0])))
+    x = jnp.asarray(r.standard_normal((b, 1, HD)), jnp.float32)
+    out = np.asarray(tfm.mha_apply(p, cfg, x, cache=cross))
+    assert np.isfinite(out).all()
+    k = np.asarray(dequantize(cross["k"], cross["ks"], jnp.float32))
+    v = np.asarray(dequantize(cross["v"], cross["vs"], jnp.float32))
+    ctx = _np_attend(_lin(p["q"], x[0, 0]), k[0], v[0], 0, 64)
+    np.testing.assert_allclose(out[0, 0], _lin(p["o"], ctx), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("b,pads,ends,cur", [
-    (3, [0, 5, 130], [L_MAX, 190, 256], True),
-    (16, [0] * 8 + [3] * 8, [L_MAX] * 8 + [140] * 8, False),
-])
-def test_compact_path_bit_identical_to_wide(b, pads, ends, cur):
-    """The compact-diagonal formulation (all post-dot VPU work on (bk, g*H))
-    must be BIT-identical to the original wide path: same per-element operand
-    order everywhere, off-diagonal entries exactly the masked/zero ones."""
-    q, k, v, cur_k, cur_v, k_q, v_q, k_s, v_s, pads, ends = _setup(
-        b, seed=3, pads=pads, ends=ends)
-    kw = dict(cur_k=cur_k, cur_v=cur_v) if cur else {}
-    wide = int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, H, pad_lens=pads,
-                                 interpret=True, compact=False, **kw)
-    comp = int8_decode_attention(q, k_q, v_q, k_s, v_s, ends, H, pad_lens=pads,
-                                 interpret=True, compact=True, **kw)
-    np.testing.assert_array_equal(np.asarray(wide), np.asarray(comp))
+def test_quantize_rows_tp_matches_full_width():
+    """Under tensor parallelism each rank quantizes its width shard with the
+    pmaxed full-width scale: the shards reassemble the single-device result."""
+    x = jnp.asarray(np.random.default_rng(7).standard_normal((3, 5, HD)), jnp.float32)
+    mesh = Mesh(np.array(jax.devices()[:4]), ("tp",))
+    fn = jax.shard_map(lambda a: quantize_rows(a, tp_axis="tp"), mesh=mesh,
+                       in_specs=P(None, None, "tp"), out_specs=(P(None, None, "tp"), P()),
+                       check_vma=False)
+    q_tp, s_tp = fn(x)
+    q_1, s_1 = quantize_rows(x)
+    np.testing.assert_array_equal(np.asarray(q_tp), np.asarray(q_1))
+    np.testing.assert_array_equal(np.asarray(s_tp), np.asarray(s_1))

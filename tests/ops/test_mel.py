@@ -1,33 +1,38 @@
-"""Fused log-mel kernel parity vs the XLA spectrogram path (interpret mode)."""
+"""Whisper's log-mel frontend (the XLA spectrogram path) vs a NumPy reference
+of ``whisper.log_mel_spectrogram``: reflect-padded periodic-Hann STFT power,
+Slaney mel filterbank, log10, last frame dropped, (max - 8) floor, (x + 4) / 4."""
 
-import jax.numpy as jnp
 import numpy as np
-from jax.experimental.pallas import tpu as pltpu
 
-from pytorch_models_tpu.models.audio import MelSpectrogram
-from pytorch_models_tpu.ops.mel import log_mel_spectrogram
+from pytorch_models_tpu.models.audio.spectrogram import get_mel_filters
+from pytorch_models_tpu.models.audio2text.whisper import WhisperPreprocessor
 from tests.oracle import randn, rng
 
 
-def _xla_logmel(x):
-    m = MelSpectrogram(400, 160, 80, 16000)(x)
-    return jnp.log10(jnp.clip(m, 0, None))
+def _reference_log_mel(x, n_fft=400, hop=160, n_mels=80):
+    x = np.asarray(x, np.float64)
+    xp = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(n_fft // 2, n_fft // 2)], mode="reflect")
+    n_frames = (xp.shape[-1] - n_fft) // hop + 1
+    idx = np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :]
+    window = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)
+    power = np.abs(np.fft.rfft(xp[..., idx] * window, axis=-1)) ** 2  # (..., T, F)
+    mel = get_mel_filters(n_mels, n_fft, 16_000).astype(np.float64) @ np.swapaxes(power, -1, -2)
+    logm = np.log10(np.clip(mel, 1e-10, None))[..., :-1]
+    top = logm.reshape(*logm.shape[:-2], -1).max(axis=-1)[..., None, None]
+    return (np.maximum(logm, top - 8.0) + 4.0) / 4.0
+
+
+def _check(shape):
+    x = randn(rng(141), *shape, scale=0.5)
+    got = np.asarray(WhisperPreprocessor("base")(x))
+    want = _reference_log_mel(x)
+    assert got.shape == want.shape and got.shape[-2] == 80
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_logmel_parity():
-    x = randn(rng(141), 16000, scale=0.5)
-    with pltpu.force_tpu_interpret_mode():
-        fused = np.asarray(log_mel_spectrogram(x))
-    ref = np.asarray(_xla_logmel(x))
-    assert fused.shape == ref.shape
-    # compare where the reference is finite (log10(0) rows are -inf in both)
-    finite = np.isfinite(ref)
-    assert np.array_equal(finite, np.isfinite(fused))
-    np.testing.assert_allclose(fused[finite], ref[finite], rtol=1e-4, atol=1e-4)
+    _check((16000,))
 
 
 def test_logmel_batched():
-    x = randn(rng(142), 2, 8000, scale=0.5)
-    with pltpu.force_tpu_interpret_mode():
-        fused = np.asarray(log_mel_spectrogram(x))
-    assert fused.shape[0] == 2 and fused.shape[1] == 80
+    _check((2, 8000))

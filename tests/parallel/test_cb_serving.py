@@ -107,7 +107,7 @@ def test_tp_cb_cache_is_head_sharded():
     m = _tiny_gpt2()
     mesh = make_mesh(4, shape=(4,), axes=("tp",))
     gen = TPContinuousBatchingGenerator(m, Tok(), mesh, batch_size=2)
-    _, _, _, _, caches = gen._init_pool(gen._sharded_params, m.cfg, 2)
+    caches = gen._init_pool(gen._sharded_params, m.cfg, 2)
     k = caches["k"]
     assert k.sharding.shard_shape(k.shape)[-1] == k.shape[-1] // 4
 

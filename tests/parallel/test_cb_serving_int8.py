@@ -1,9 +1,7 @@
 """int8 KV in the TENSOR-PARALLEL continuous-batching pools.
 
-The TP pools ride the per-op int8 decode path (transformer.py
-_int8_self_decode_apply / _int8_cross_decode_apply over ops/int8_kv.py's
-standalone kernel): int8 K/V shard on the head width, the per-key f32 scale
-planes replicate (every rank quantizes with the FULL-width scale —
+int8 K/V shard on the head width and dequantize on read per rank; the
+per-key f32 scales replicate (every rank quantizes with the FULL-width scale —
 quantize_rows pmaxes the absmax over the tp axis). Outputs must be
 TOKEN-IDENTICAL to the single-device int8 pool under the same flags (not to
 bf16 — int8 changes numerics by design).
@@ -12,9 +10,7 @@ bf16 — int8 changes numerics by design).
 import jax
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from pytorch_models_tpu.ops import attention as attn_mod
 from pytorch_models_tpu.parallel import make_mesh
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -34,22 +30,7 @@ def _tiny_gpt2(n_layers=2):
         GPT2.vocab_size, GPT2.max_seq_len = 50257, 1024
 
 
-def _int8(fn, self_kv=True, cross_kv=True):
-    attn_mod.USE_FUSED_STEP = True  # the single-device oracle pool is fused
-    attn_mod.USE_INT8_KV = self_kv
-    attn_mod.USE_INT8_KV_CROSS = cross_kv
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            return fn()
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_INT8_KV = False
-        attn_mod.USE_INT8_KV_CROSS = False
-        jax.clear_caches()
-
-
-def test_tp_int8_gpt_pool_matches_single_device_int8(tp=2):
+def test_tp_int8_gpt_pool_matches_single_device_int8(int8_modes, tp=2):
     from pytorch_models_tpu.models.text.continuous import ContinuousBatchingGenerator
     from pytorch_models_tpu.parallel.cb_serving import TPContinuousBatchingGenerator
 
@@ -57,24 +38,20 @@ def test_tp_int8_gpt_pool_matches_single_device_int8(tp=2):
     requests = [[5, 6, 7], [9] * 12, [11, 12], [3] * 7, [8, 1, 2, 6]]
     budgets = [8, 5, 11, 8, 3]
 
+    reads = int8_modes(self_kv=True)
     sd = ContinuousBatchingGenerator(m, Tok(), batch_size=2, prompt_bucket=16,
                                      check_every=4)
-    ref = _int8(lambda: sd.generate_tokens_many(requests, budgets), cross_kv=False)
+    ref = sd.generate_tokens_many(requests, budgets)
 
     mesh = make_mesh(tp, shape=(tp,), axes=("tp",))
     gen = TPContinuousBatchingGenerator(m, Tok(), mesh, batch_size=2,
                                         prompt_bucket=16, check_every=4)
-    # non-vacuous: the TP pool must actually engage the int8 path
-    attn_mod.USE_INT8_KV = True
-    try:
-        assert gen._use_int8_pool(m.cfg, 2, False)
-    finally:
-        attn_mod.USE_INT8_KV = False
-    outs = _int8(lambda: gen.generate_tokens_many(requests, budgets), cross_kv=False)
-    assert outs == ref
+    n = reads["n"]
+    assert gen.generate_tokens_many(requests, budgets) == ref
+    assert reads["n"] > n  # non-vacuous: the TP pool read int8 caches
 
 
-def test_tp_int8_whisper_pool_matches_single_device_int8(tp=2):
+def test_tp_int8_whisper_pool_matches_single_device_int8(int8_modes, tp=2):
     from pytorch_models_tpu.models.audio2text.whisper import Whisper
     from pytorch_models_tpu.models.audio2text.continuous import (
         WhisperContinuousBatchingGenerator,
@@ -88,25 +65,21 @@ def test_tp_int8_whisper_pool_matches_single_device_int8(tp=2):
     audios = [(rng.standard_normal(16000) * 0.1).astype(np.float32) for _ in range(3)]
     init, eot = [50, 51, 52], 99
 
+    reads = int8_modes(self_kv=True, cross_kv=True)
     sd = WhisperContinuousBatchingGenerator(m, batch_size=2, check_every=4,
                                             pool_ctx=64)
-    ref = _int8(lambda: sd.transcribe_tokens_many(audios, init, eot, max_tokens=12))
+    ref = sd.transcribe_tokens_many(audios, init, eot, max_tokens=12)
 
     mesh = make_mesh(tp, shape=(tp,), axes=("tp",))
     gen = TPWhisperContinuousBatchingGenerator(m, mesh, batch_size=2,
                                                check_every=4, pool_ctx=64)
-    attn_mod.USE_INT8_KV = attn_mod.USE_INT8_KV_CROSS = True
-    try:
-        assert gen._int8_modes(m.cfg, 2, False) == (True, True)
-    finally:
-        attn_mod.USE_INT8_KV = attn_mod.USE_INT8_KV_CROSS = False
-    outs = _int8(lambda: gen.transcribe_tokens_many(audios, init, eot, max_tokens=12))
-    assert outs == ref
+    n = reads["n"]
+    assert gen.transcribe_tokens_many(audios, init, eot, max_tokens=12) == ref
+    assert reads["n"] > n
 
 
-def test_tp_int8_t5_cross_pool_matches_single_device_int8(tp=2):
-    """T5 under TP: int8 CROSS only (the per-op int8 kernel has no bias
-    input, so the rel-pos self bias keeps self-KV bf16)."""
+def test_tp_int8_t5_cross_pool_matches_single_device_int8(int8_modes, tp=2):
+    """T5 under TP with int8 cross caches (write-once encoder K/V)."""
     from pytorch_models_tpu.models.text import T5Model
     from pytorch_models_tpu.models.text.t5_continuous import (
         T5ContinuousBatchingGenerator,
@@ -117,31 +90,27 @@ def test_tp_int8_t5_cross_pool_matches_single_device_int8(tp=2):
     rng = np.random.default_rng(13)
     requests = [rng.integers(2, 96, size=n).tolist() for n in (5, 17, 11)]
 
+    reads = int8_modes(cross_kv=True)
     sd = T5ContinuousBatchingGenerator(m, batch_size=2, check_every=4, pool_ctx=64)
-    ref = _int8(lambda: sd.generate_tokens_many(requests, 12, 0, 1), self_kv=False)
+    ref = sd.generate_tokens_many(requests, 12, 0, 1)
 
     mesh = make_mesh(tp, shape=(tp,), axes=("tp",))
     gen = TPT5ContinuousBatchingGenerator(m, mesh, batch_size=2, check_every=4,
                                           pool_ctx=64)
-    attn_mod.USE_INT8_KV_CROSS = True
-    try:
-        assert gen._int8_modes(m.params, m.cfg, 2, 64) == (False, True)
-    finally:
-        attn_mod.USE_INT8_KV_CROSS = False
-    outs = _int8(lambda: gen.generate_tokens_many(requests, 12, 0, 1), self_kv=False)
-    assert outs == ref
+    n = reads["n"]
+    assert gen.generate_tokens_many(requests, 12, 0, 1) == ref
+    assert reads["n"] > n
 
 
 def test_tp_int8_cache_sharding(tp=4):
-    """int8 pool layout: K/V shard on the head width, scale planes replicate."""
-    from pytorch_models_tpu.models.text._decoder_lm import quantize_kv_caches
+    """int8 pool layout: int8 K/V of the pool's shape with per-key scales."""
+    from pytorch_models_tpu.ops.int8_kv import quantize_kv
 
     m = _tiny_gpt2()
     mesh = make_mesh(tp, shape=(tp,), axes=("tp",))
     from pytorch_models_tpu.parallel.cb_serving import TPContinuousBatchingGenerator
 
     gen = TPContinuousBatchingGenerator(m, Tok(), mesh, batch_size=2)
-    _, _, _, _, caches = gen._init_pool(gen._sharded_params, m.cfg, 2)
-    caches = quantize_kv_caches(caches)
+    caches = quantize_kv(gen._init_pool(gen._sharded_params, m.cfg, 2))
     assert caches["k"].dtype.name == "int8"
-    assert caches["ks"].shape == (m.cfg.n_layers, 8, caches["k"].shape[2])
+    assert caches["ks"].shape == caches["k"].shape[:-1] == (m.cfg.n_layers, 2, 128)

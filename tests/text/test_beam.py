@@ -162,51 +162,29 @@ def test_batched_groups_close_independently(model):
         np.testing.assert_allclose(b_scores[i], s_scores, rtol=0, atol=2e-4)
 
 
-def test_fused_step_path_matches_einsum(model):
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.ops import attention as attn_mod
-
+def test_fused_step_path_matches_einsum(model, request):
+    """Beam search with every decode read through the Triton decode kernel
+    (interpret mode) == the einsum path."""
     gen = DecoderGenerator(model, _Tok())
     base = gen.beam_search_tokens([3, 1, 4, 1, 5], max_tokens=8, beam_width=3,
                                   return_all=True)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_DECODE_KERNEL = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            fused = gen.beam_search_tokens([3, 1, 4, 1, 5], max_tokens=8, beam_width=3,
-                                           return_all=True)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_DECODE_KERNEL = None
-        jax.clear_caches()
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    fused = gen.beam_search_tokens([3, 1, 4, 1, 5], max_tokens=8, beam_width=3,
+                                   return_all=True)
+    assert calls["traces"] > 0
     assert fused[0] == base[0]
     np.testing.assert_allclose(fused[1], base[1], atol=1e-3)
 
 
-def test_fused_step_embed_fold_matches_einsum(model):
-    """Beam via the batched fused path with the in-kernel embed fold forced
-    on (off by default on CPU) must match the per-op path exactly."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.ops import attention as attn_mod
-
+def test_fused_step_embed_fold_matches_einsum(model, request):
+    """Batched beam search over left-padded prompts of different lengths
+    (per-row pad masks inside the decode kernel, interpret mode) == the
+    einsum path."""
     gen = DecoderGenerator(model, _Tok())
-    base = gen.beam_search_tokens([3, 1, 4, 1, 5], max_tokens=8, beam_width=3,
-                                  return_all=True)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_DECODE_KERNEL = True
-    attn_mod.USE_FUSED_EMBED = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            fused = gen.beam_search_tokens([3, 1, 4, 1, 5], max_tokens=8, beam_width=3,
-                                           return_all=True)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_DECODE_KERNEL = None
-        attn_mod.USE_FUSED_EMBED = None
-        jax.clear_caches()
+    prompts = [[3, 1, 4, 1, 5], [9, 2]]
+    base = gen.beam_search_tokens_batch(prompts, max_tokens=8, beam_width=2, return_all=True)
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    fused = gen.beam_search_tokens_batch(prompts, max_tokens=8, beam_width=2, return_all=True)
+    assert calls["traces"] > 0
     assert fused[0] == base[0]
     np.testing.assert_allclose(fused[1], base[1], atol=1e-3)

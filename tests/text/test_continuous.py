@@ -168,29 +168,17 @@ def test_empty_queue(model):
     assert cb.generate_tokens_many([], 8) == []
 
 
-def test_fused_step_path_matches_plain(model):
-    """The TPU route: _cb_steps through the fused one-kernel decode step
-    (interpret mode), with a mid-flight admission against a stale cache."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.ops import attention as attn_mod
-
+def test_fused_step_path_matches_plain(model, request):
+    """The GPU route: _cb_steps with every decode read through the Triton
+    decode kernel (interpret mode), with a mid-flight admission against a
+    stale cache."""
     tok = _Tok()
     reqs, budgets = PROMPTS[:3], [9, 4, 6]
     base = _oracle(model, tok, reqs, budgets)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_DECODE_KERNEL = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            cb = ContinuousBatchingGenerator(model, tok, batch_size=2,
-                                             prompt_bucket=16, check_every=3)
-            outs = cb.generate_tokens_many(reqs, budgets)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_DECODE_KERNEL = None
-        jax.clear_caches()
-    assert outs == base
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    cb = ContinuousBatchingGenerator(model, tok, batch_size=2, prompt_bucket=16, check_every=3)
+    assert cb.generate_tokens_many(reqs, budgets) == base
+    assert calls["traces"] > 0
 
 
 def test_shared_prefix_matches_plain(model):
@@ -333,31 +321,18 @@ def test_sampling_with_shared_prefix(model):
                     for i, r in enumerate(reqs)]
 
 
-def test_fused_sampling_path_matches_xla(model):
-    """The TPU sampling route (headless fused megakernel + XLA head matmul
-    + per-row fold_in draw) in interpret mode must reproduce the CPU path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.ops import attention as attn_mod
-
+def test_fused_sampling_path_matches_xla(model, request):
+    """The GPU sampling route (decode kernel + XLA head matmul + per-row
+    fold_in draw) in interpret mode must reproduce the einsum path."""
     tok = _Tok()
     reqs, budgets = PROMPTS[:3], [7, 4, 6]
     kw = dict(topk=3, temperature=0.8, seed=2)
     base = ContinuousBatchingGenerator(model, tok, batch_size=2, prompt_bucket=16,
                                        check_every=3).generate_tokens_many(reqs, budgets, **kw)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_DECODE_KERNEL = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            cb = ContinuousBatchingGenerator(model, tok, batch_size=2,
-                                             prompt_bucket=16, check_every=3)
-            outs = cb.generate_tokens_many(reqs, budgets, **kw)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_DECODE_KERNEL = None
-        jax.clear_caches()
-    assert outs == base
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    cb = ContinuousBatchingGenerator(model, tok, batch_size=2, prompt_bucket=16, check_every=3)
+    assert cb.generate_tokens_many(reqs, budgets, **kw) == base
+    assert calls["traces"] > 0
 
 
 def test_serving_stats_consistency(model):

@@ -1,22 +1,17 @@
 """int8 self-KV continuous batching: the pool's caches live as per-key int8
-(+ scale planes) and every admission prefills in bf16 on a 1-row scratch,
+(+ scales) and every admission prefills in bf16 on a 1-row scratch,
 quantizing ONCE at commit — the same prefill-then-quantize order as the
 plain int8 generator (generator.py), so per-request outputs must be
 TOKEN-IDENTICAL to ``DecoderGenerator.generate_tokens`` under the same
 USE_INT8_KV mode (not to bf16 — int8 changes numerics by design).
-
-Interpret-mode sizes follow the CLAUDE.md DMA rule: max_seq_len 128 = one
-int8 KV block; vocab 512 keeps the head stream at <= 2 tiles.
 """
 
 from types import SimpleNamespace
 
 import jax
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from pytorch_models_tpu.models.text._decoder_lm import DecoderLMConfig, decoder_lm_init
-from pytorch_models_tpu.ops import attention as attn_mod
 from pytorch_models_tpu.text import ContinuousBatchingGenerator, DecoderGenerator
 
 
@@ -41,44 +36,31 @@ def model():
 PROMPTS = [[3, 1, 4, 1, 5], [2, 7], [9, 2, 6, 5, 3, 5, 8, 9], [11]]
 
 
-def _int8(fn):
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_INT8_KV = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            return fn()
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_INT8_KV = False
-        jax.clear_caches()
-
-
-def test_int8_pool_matches_plain_int8_generator(model):
+def test_int8_pool_matches_plain_int8_generator(model, int8_modes):
     """Staggered budgets admit mid-flight into slots holding stale int8
     state; every request must match the plain int8 greedy loop exactly."""
+    reads = int8_modes(self_kv=True)
     tok = _Tok()
     budgets = [9, 4, 11, 6]
     cb = ContinuousBatchingGenerator(model, tok, batch_size=2, prompt_bucket=16,
                                      check_every=4)
-    outs = _int8(lambda: cb.generate_tokens_many(PROMPTS, budgets))
+    outs = cb.generate_tokens_many(PROMPTS, budgets)
+    assert reads["n"] > 0
     plain = DecoderGenerator(model, tok)
-    ref = _int8(lambda: [plain.generate_tokens(r, max_tokens=m)
-                         for r, m in zip(PROMPTS, budgets)])
-    assert outs == ref
+    assert outs == [plain.generate_tokens(r, max_tokens=m) for r, m in zip(PROMPTS, budgets)]
 
 
-def test_int8_pool_prefix_and_chunked_prefill(model):
+def test_int8_pool_prefix_and_chunked_prefill(model, int8_modes):
     """Shared-prefix paste + a prompt longer than the bucket (chunked
     prefill) both run through the unified int8 admission path."""
+    int8_modes(self_kv=True)
     tok = _Tok()
     prefix = [7, 8, 9]
     reqs = [[5, 6], [i * 3 % 512 for i in range(21)], [4]]  # 21 > bucket 16
     budgets = [6, 5, 8]
     cb = ContinuousBatchingGenerator(model, tok, batch_size=2, prompt_bucket=16,
                                      check_every=4)
-    outs = _int8(lambda: cb.generate_tokens_many(reqs, budgets, shared_prefix=prefix))
+    outs = cb.generate_tokens_many(reqs, budgets, shared_prefix=prefix)
     plain = DecoderGenerator(model, tok)
-    ref = _int8(lambda: [plain.generate_tokens(prefix + r, max_tokens=m)
-                         for r, m in zip(reqs, budgets)])
-    assert outs == ref
+    assert outs == [plain.generate_tokens(prefix + r, max_tokens=m)
+                    for r, m in zip(reqs, budgets)]

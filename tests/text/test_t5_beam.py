@@ -1,8 +1,9 @@
 """T5 beam search must match (a) greedy at beam_width=1 and (b) a naive beam
 oracle computed by full decoder re-forward (``t5_decode``: no KV caches, no
 parent-gather, no fixed-shape buffers) under the same top-2W selection rule
-as models/text/beam.py. The fused one-kernel route (interpret mode) must
-agree with the einsum route token-for-token.
+as models/text/beam.py. Under the decode-kernel route (interpret mode) T5
+stays per-op — its self-attention carries the rel-pos bias — and agrees with
+the einsum route token-for-token.
 """
 
 import jax
@@ -102,47 +103,25 @@ def test_matches_naive_with_penalty(gen):
     np.testing.assert_allclose(scores, n_scores, rtol=0, atol=2e-4)
 
 
-def test_fused_step_path_matches_einsum(gen):
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.ops import attention as attn_mod
-
+def test_fused_step_path_matches_einsum(gen, request):
+    """Beam decode under the decode-kernel route (interpret mode) never
+    traces the kernel (rel-pos-biased self-attention, full-length cross
+    memory) and == the einsum path."""
     base = gen.generate_beam_tokens(PROMPT, 8, PAD, EOS, beam_width=3, return_all=True)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_DECODE_KERNEL = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            fused = gen.generate_beam_tokens(PROMPT, 8, PAD, EOS, beam_width=3,
-                                             return_all=True)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_DECODE_KERNEL = None
-        jax.clear_caches()
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    fused = gen.generate_beam_tokens(PROMPT, 8, PAD, EOS, beam_width=3, return_all=True)
+    assert calls["traces"] == 0
     assert fused[0] == base[0]
     np.testing.assert_allclose(fused[1], base[1], atol=1e-3)
 
 
-def test_fused_step_embed_fold_matches_einsum(gen):
-    """Beam decode with the in-kernel embed phase forced on (the beam body's
-    fold branch, off by default on CPU) must match the per-op path exactly."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from pytorch_models_tpu.ops import attention as attn_mod
-
-    base = gen.generate_beam_tokens(PROMPT, 8, PAD, EOS, beam_width=3, return_all=True)
-    attn_mod.USE_FUSED_STEP = True
-    attn_mod.USE_DECODE_KERNEL = True
-    attn_mod.USE_FUSED_EMBED = True
-    try:
-        jax.clear_caches()
-        with pltpu.force_tpu_interpret_mode():
-            fused = gen.generate_beam_tokens(PROMPT, 8, PAD, EOS, beam_width=3,
-                                             return_all=True)
-    finally:
-        attn_mod.USE_FUSED_STEP = None
-        attn_mod.USE_DECODE_KERNEL = None
-        attn_mod.USE_FUSED_EMBED = None
-        jax.clear_caches()
+def test_fused_step_embed_fold_matches_einsum(gen, request):
+    """Length-penalized beam decode under the decode-kernel route (interpret
+    mode) stays per-op and == the einsum path."""
+    kw = dict(beam_width=2, length_penalty=0.6, return_all=True)
+    base = gen.generate_beam_tokens(PROMPT, 10, PAD, EOS, **kw)
+    calls = request.getfixturevalue("decode_kernel_interpret")
+    fused = gen.generate_beam_tokens(PROMPT, 10, PAD, EOS, **kw)
+    assert calls["traces"] == 0
     assert fused[0] == base[0]
     np.testing.assert_allclose(fused[1], base[1], atol=1e-3)

@@ -1,8 +1,8 @@
-"""Speculative-decoding speed bracket on the real TPU (B=1 GPT-2-small).
+"""Speculative-decoding speed bracket on the GPU (B=1 GPT-2-small).
 
 Random weights give a meaningless acceptance rate, so this measures the two
 ends of the bracket that pure mechanics determine:
-  plain    — production single-stream greedy (megakernel batch-of-1)
+  plain    — production single-stream greedy (batch of 1)
   spec a=1 — draft == target: every chunk accepts all k drafts (upper bound)
   spec a~0 — 2-layer random draft: ~every chunk accepts 0 (overhead floor)
 Real-model throughput lands between the ends by acceptance rate:
@@ -11,7 +11,6 @@ tok/s(a) ~ (1 + a*k) / t_iter.
 Run: python tools/spec_bench.py [k] [new_tokens]
 """
 
-import os
 import sys
 import time
 
@@ -21,9 +20,9 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_compile_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+from pytorch_models_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache(".")
 
 
 def timeit(name, fn, args, n_tok, reps=4):
@@ -42,7 +41,6 @@ def main():
     new_tokens = int(sys.argv[2]) if len(sys.argv) > 2 else 128
 
     from pytorch_models_tpu.models.text import GPT2
-    from pytorch_models_tpu.models.text._decoder_lm import decoder_lm_fused_ok
     from pytorch_models_tpu.models.text.generator import _generate_batch
     from pytorch_models_tpu.models.text.speculative import (
         _speculative_generate,
@@ -62,18 +60,16 @@ def main():
     limit = n + new_tokens
     print(f"gpt2-small B=1, k={k}, {new_tokens} new tokens", flush=True)
 
-    # plain: production batch-of-1 through the megakernel
+    # plain: production batch of 1
     bbuf = jnp.asarray(prompt_buf[None])
     pads = jnp.asarray([pad - n], jnp.int32)
-    fused = decoder_lm_fused_ok(target.params, cfg)
     key = jax.random.PRNGKey(0)
-    plain_args = (target.params, cfg, bbuf, pads, pad + new_tokens, 1, -1, key, fused)
+    plain_args = (target.params, cfg, bbuf, pads, pad + new_tokens, 1, -1, key)
     t_plain = timeit("plain", _generate_batch, plain_args, new_tokens)
 
     pb = jnp.asarray(prompt_buf)
     for name, dm in (("spec a=1", target), ("spec a~0", draft)):
-        fd = decoder_lm_fused_ok(dm.params, dm.cfg)
-        args = (target.params, cfg, dm.params, dm.cfg, pb, n, limit, k, -1, fd)
+        args = (target.params, cfg, dm.params, dm.cfg, pb, n, limit, k, -1)
         timeit(name, _speculative_generate, args, new_tokens)
 
     # ---- REAL operating points: honest drafts built from the target's own
@@ -82,8 +78,7 @@ def main():
     plain_toks = np.asarray(_generate_batch(*plain_args)[0])[0]
     for n_draft in (2, 4, 6):
         dp, dc = truncate_decoder_lm(target.params, cfg, n_draft)
-        fd = decoder_lm_fused_ok(dp, dc)
-        args = (target.params, cfg, dp, dc, pb, n, limit, k, -1, fd)
+        args = (target.params, cfg, dp, dc, pb, n, limit, k, -1)
         buf, length, n_iters = _speculative_generate_stats(*args)
         buf, length, n_iters = np.asarray(buf), int(length), int(n_iters)
         emitted = length - (n + 1)  # tokens the LOOP produced (pos0 = n+1)
